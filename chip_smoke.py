@@ -15,6 +15,16 @@ and nothing of the JAX package ``repro``.  Phases:
   3. K2 (DDT gather) against its plain version on the card, bit for bit:
      int32, float32 with -0.0 and NaN payloads, uint8; holes; sources up
      to 4 MiB;
+  3a. K3 (checksum) against its plain version, bit for bit: 64 ICMP echo
+     frames and 65,536 random frames of random (odd and even) lengths
+     with non-zero bytes past each length;
+  3b. K4 (flash attention) against its plain version on the card, each
+     case printing its max abs error and its row error (see K4_ROW_TOL):
+     gemma3-1b's prefill shape (causal, window 0 and 512), a qwen3-1.7b
+     shape, ragged Sq = Sk = 1,000, non-causal with a ragged Sk, and
+     D = 64 in float32.  At gemma3-1b's shape, planted faults (the kernel
+     run so that the rows from Sq / 2 on miss their 64 newest keys, or
+     with the window one key tile short or long) must fail the check;
   4. the main path: ``SpinNIC.step`` at the NIC's full geometry (512 KiB
      L2, 16 MPQ entries, batches of 64 frames) receiving 16 concurrent
      Fig 9 datatype messages (count 1024) over SLMP, for the complex and
@@ -26,14 +36,29 @@ and nothing of the JAX package ``repro``.  Phases:
      K1 once and K2 twice per call; the Fig 10 overlap loops with a
      float32 matmul sized to outlast the ingest (R is printed, and only
      checked to lie in [0, 1]);
+  5a. the checksum path: ``internet_checksum_batch`` over 64 ICMP echo
+     requests and over the NIC's 64 replies to them (both must sum to 0);
+     K3 twice;
+  5b. the serving path at gemma3-1b's full width (26 layers, d_model
+     1,152, vocab 262,144, weights drawn on the card from a seed): batch
+     4, a 2,048-token prompt from ``prefill_batch_specs`` (seed 0), 32
+     greedy tokens, run twice.  K4 runs 26 times per prefill and never in
+     decode; the tokens lie in the vocab and agree between the runs; K4's
+     output on the prompt's own q/k/v at layers 0 (local) and 5 (global)
+     agrees with the plain version, and the planted faults fail there
+     too.  Prints prefill ms, decode ms/token
+     and tokens/s;
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
      it), the least time the card could take (bytes moved over
-     3.35 TB/s), the plain version's time and, for K2, ``torch.take``'s
-     time as a yardstick;
-  7. one NIC step under torch.profiler: kernels per step, device busy
-     time and the idle share it implies.
+     3.35 TB/s, or operations over the bf16 tensor-core peak for K4), the
+     plain version's time and, as a yardstick, ``torch.take``'s time for
+     K2 and ``scaled_dot_product_attention``'s for K4 (the port never
+     calls either);
+  7. one NIC step, one serving prefill and one decode step under
+     torch.profiler: kernels per call, device busy time, the idle share it
+     implies and the kernels with the most device time.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -43,7 +68,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -53,21 +77,31 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12             # non-tensor-core float32 peak, same sheet
+BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak, same sheet
 FIG10_MSGS = 16                    # paper: 16 concurrent messages
 FIG10_COUNT = 1024                 # Fig 9 datatypes at count 1024
 NIC_BATCH = 64                     # SpinNIC default batch
+SERVE_ARCH = "gemma3-1b"           # the serving CLI's default --arch
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_GEN = 32
+# K4 against its plain version, two limits that both must hold.  K4_ATOL,
+# on the max abs error: bf16 is the limit the JAX package holds its own
+# kernel to.  K4_ROW_TOL, on the row error (``ref.row_error``: a row's
+# largest error over that row's RMS), is the one that sees a fault: a row
+# that averages n keys has |o| ~ n**-0.5, about 0.06 at n = 2,048, so an
+# absolute limit of 0.06 is as large as the values it compares.  A sound
+# bf16 kernel differs by output rounding (one bf16 step, 2**-8 to 2**-7
+# of a value of up to ~4 RMS) and by rounding P to bf16 before P.V, as
+# the TPU kernel does: a few hundredths.  A kernel missing one key tile
+# of 64 reads 1 or more (the planted faults below).  float32: exp and
+# the sums over up to 2,048 keys run in another order.
+K4_ATOL = {"bfloat16": 0.06, "float32": 1e-4}
+K4_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
-        f"nvidia-smi failed ({r.returncode})"
 
 
 def bits(t):
@@ -218,6 +252,115 @@ def phase_k2(dev):
             f"(holes {int((idx < 0).sum())}, idx>=S {int((idx >= s).sum())})")
 
 
+def phase_k3(dev):
+    import numpy as np
+    import torch
+    from repro_torch.core import packet as pkt
+    from repro_torch.kernels.checksum import ops, ref
+    rng = np.random.default_rng(3)
+    icmp = pkt.stack_frames_np([pkt.make_icmp_echo(rng.integers(
+        0, 256, int(rng.integers(0, 1400))).astype(np.uint8), seq=i)
+        for i in range(64)])[:2]
+    n = 65536
+    rand = (rng.integers(1, 256, (n, pkt.MTU)).astype(np.uint8),
+            rng.integers(0, pkt.MTU + 1, n).astype(np.int32))
+    for name, (data, lengths) in (("icmp", icmp), ("random", rand)):
+        d = torch.as_tensor(data, device=dev)
+        ln = torch.as_tensor(lengths, device=dev)
+        got = ops.internet_checksum(d, ln, start=pkt.L4_BASE)
+        want = ref.checksum_ref(d, ln, pkt.L4_BASE)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 mismatch on {name} frames")
+        if name == "icmp" and bool(got.any()):
+            raise AssertionError("K3: an ICMP echo request does not verify")
+        log(f"[3a] K3 {name} N={len(lengths)} start={pkt.L4_BASE}: "
+            f"bit-exact ({int((lengths % 2).sum())} odd lengths, "
+            f"{int((got == 0).sum())} zero sums)")
+
+
+def k4_inputs(dev, b, sq, sk, h, kv, d, dtype, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, sq, h, d), device=dev, generator=g).to(dtype),
+            torch.randn((b, sk, kv, d), device=dev, generator=g).to(dtype),
+            torch.randn((b, sk, kv, d), device=dev, generator=g).to(dtype))
+
+
+def k4_errors(got, want):
+    """(max abs error, row error, whether both are within the limits)."""
+    from repro_torch.kernels.flash_attention import ref
+    err = (got.float() - want.float()).abs().max().item()
+    row = ref.row_error(got, want)
+    dt = str(want.dtype).split(".")[-1]
+    return err, row, err <= K4_ATOL[dt] and row <= K4_ROW_TOL[dt]
+
+
+def k4_check(tag, q, k, v, causal, window):
+    """K4 against its plain version on the same card tensors.  Returns
+    (max abs error, row error, the plain output); raises beyond K4_ATOL
+    or K4_ROW_TOL."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err, row, ok = k4_errors(got, want)
+    dt = str(q.dtype).split(".")[-1]
+    log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal="
+        f"{causal} window={window}: max abs err {err:.3e} (limit "
+        f"{K4_ATOL[dt]}), row error {row:.3e} (limit {K4_ROW_TOL[dt]})")
+    if not ok:
+        raise AssertionError(f"K4 errors {err}, {row} beyond the limits")
+    return err, row, want
+
+
+def k4_planted_faults(tag, q, k, v, window, want):
+    """Run K4 so that it computes a wrong function near the right one and
+    hold it to the plain version's ``want`` (causal, ``window``) with the
+    check of ``k4_check``: every fault must fail it.  Global (window 0):
+    the queries shifted by one key tile, so each row misses its 64 newest
+    keys, held to the plain version only in the rows from Sq / 2 on, where
+    each row averages 1,000 keys or more and its values are smallest.
+    Local: the window one key tile short and one long."""
+    from repro_torch.kernels.flash_attention import ops
+    if window:
+        faults = [(f"window {window - 64}", ops.flash_attention(
+                      q, k, v, causal=True, window=window - 64), want),
+                  (f"window {window + 64}", ops.flash_attention(
+                      q, k, v, causal=True, window=window + 64), want)]
+    else:
+        half = q.shape[1] // 2
+        faults = [(f"rows from {half} on miss their 64 newest keys",
+                   ops.flash_attention(q[:, 64:], k, v, causal=True,
+                                       window=0)[:, half - 64:],
+                   want[:, half:])]
+    for name, got, ref_out in faults:
+        err, row, ok = k4_errors(got, ref_out)
+        log(f"{tag} planted fault ({name}): max abs err {err:.3e}, row "
+            f"error {row:.3e}: {'PASSES' if ok else 'fails'} the check")
+        if ok:
+            raise AssertionError(f"K4 check passes a planted fault: {name}")
+
+
+def phase_k4(dev):
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # B, Sq, Sk, H, KV, D, dtype, causal, window
+        (4, 2048, 2048, 4, 1, 256, bf, True, 0),      # gemma3-1b global
+        (4, 2048, 2048, 4, 1, 256, bf, True, 512),    # gemma3-1b local
+        (2, 2048, 2048, 16, 8, 128, bf, True, 0),     # qwen3-1.7b
+        (2, 1000, 1000, 8, 2, 128, bf, True, 0),      # ragged
+        (2, 512, 1000, 4, 4, 128, bf, False, 0),      # non-causal, ragged Sk
+        (2, 777, 777, 4, 2, 64, f32, True, 100),      # float32, D 64
+    ]
+    for i, (b, sq, sk, h, kv, d, dt, causal, window) in enumerate(cases):
+        q, k, v = k4_inputs(dev, b, sq, sk, h, kv, d, dt, seed=i)
+        _, _, want = k4_check("[3b] K4", q, k, v, causal, window)
+        if i < 2:                            # gemma3-1b's two layer kinds
+            k4_planted_faults("[3b] K4", q, k, v, window, want)
+
+
 def fig10_stream(kind, dev, seed=0):
     """16 messages of the Fig 9 datatype, interleaved one frame per
     message, through SpinNIC.step at full geometry.  Returns (nic, state,
@@ -256,8 +399,9 @@ def fig10_stream(kind, dev, seed=0):
 def profile_step(step_fn):
     """One call of ``step_fn`` under torch.profiler.  Returns (device
     kernels, device busy us as the union of kernel intervals, wall us on
-    the host clock, the three commonest kernel names).  The profiler
-    slows the host, so the idle share it implies is an upper estimate."""
+    the host clock, the three commonest kernel names, the three kernel
+    names with the most device time and their us).  The profiler slows
+    the host, so the idle share it implies is an upper estimate."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -282,7 +426,10 @@ def profile_step(step_fn):
     if cur:
         busy += cur[1] - cur[0]
     names = collections.Counter(e.name for e in evs).most_common(3)
-    return len(spans), busy, wall, names
+    dev_us = collections.Counter()
+    for e in evs:
+        dev_us[e.name] += e.time_range.end - e.time_range.start
+    return len(spans), busy, wall, names, dev_us.most_common(3)
 
 
 def phase_main_path(dev):
@@ -438,9 +585,134 @@ def phase_ingest(dev):
     return spin, feeds[0], calls
 
 
-def phase_kernels(dev, launches, spin):
-    """Time K1 and K2 at the main path's shapes.  Returns the entries of
-    the ``kernels`` line."""
+def phase_checksum_path(dev):
+    """``internet_checksum_batch`` over 64 ICMP echo requests and over the
+    NIC's replies to them: a correct ICMP message sums to 0.  Returns the
+    requests (the path's K3 input) and the number of batch calls."""
+    import numpy as np
+    import torch
+    from repro_torch.core import apps, checksum, packet as pkt, spin_nic
+    rng = np.random.default_rng(5)
+    frames = [pkt.make_icmp_echo(rng.integers(0, 256, n).astype(np.uint8),
+                                 seq=i)
+              for i, n in enumerate(rng.integers(0, 1400, NIC_BATCH))]
+    reqs = pkt.stack_frames(frames, n=NIC_BATCH, device=dev)
+    sums = checksum.internet_checksum_batch(reqs.data, reqs.length,
+                                            pkt.L4_BASE)
+    nic = spin_nic.SpinNIC([apps.make_icmp_context()], batch=NIC_BATCH,
+                           device=dev)
+    _, eg, _ = nic.step(nic.init_state(), reqs)
+    if int(eg.valid.sum()) != NIC_BATCH:
+        raise AssertionError("checksum path: missing ICMP replies")
+    # a receiver sees the frame's bytes only: zero what lies past length
+    live = torch.arange(pkt.MTU, device=dev)[None, :] < eg.length[:, None]
+    replies = torch.where(live, eg.data, 0).contiguous()
+    reply_sums = checksum.internet_checksum_batch(replies, eg.length,
+                                                  pkt.L4_BASE)
+    if bool(sums.any()) or bool(reply_sums.any()):
+        raise AssertionError("checksum path: a request or reply does not "
+                             "verify")
+    log(f"[5a] checksum path: {NIC_BATCH} ICMP echo requests "
+        f"({int((reqs.length % 2).sum())} of odd length) and the NIC's "
+        f"{NIC_BATCH} replies verify through internet_checksum_batch")
+    return reqs, 2
+
+
+def phase_serve(dev):
+    """The serving path at full width, twice.  Returns what phase 6 times
+    K4 on: the prompt's q/k/v at layers 0 (local) and 5 (global)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = configs.get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_local = cfg.pattern_layers.count("local")
+    log(f"[5b] {cfg.name}: {cfg.n_layers} layers ({n_local} local, window "
+        f"{cfg.window}), d_model {cfg.d_model}, "
+        f"H {cfg.n_heads}, KV {cfg.n_kv_heads}, head_dim {cfg.head_dim}, "
+        f"vocab {cfg.vocab}: {n_params} parameters in {cfg.dtype} drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    max_len = SERVE_PROMPT + SERVE_GEN + 8
+    engine = ServeEngine(model, params, max_len=max_len)
+    tokens = shapes.prefill_batch_specs(cfg, SERVE_PROMPT, SERVE_BATCH,
+                                        rng=np.random.default_rng(0))
+    batch = {"tokens": torch.as_tensor(tokens["tokens"], device=dev)}
+    captured, outs = {}, []
+    plain_call = k4.flash_attention
+    for run in range(2):
+        calls = []
+
+        def recording(q, k, v, **kw):       # the layer's own K4 call
+            out = plain_call(q, k, v, **kw)
+            if len(calls) in (0, 5):
+                captured[len(calls)] = (q, k, v, kw, out)
+            calls.append(kw)
+            return out
+
+        if run == 1:
+            k4.flash_attention = recording
+        try:
+            before = k4.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.prefill(batch)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            n_pre = k4.launches - before
+            t0 = time.perf_counter()
+            toks, state = engine.generate(state, SERVE_GEN)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+            n_dec = k4.launches - before - n_pre
+        finally:
+            k4.flash_attention = plain_call
+        if (n_pre, n_dec) != (cfg.n_layers, 0):
+            raise AssertionError(f"serve: K4 ran {n_pre} times in prefill "
+                                 f"and {n_dec} in decode")
+        toks = toks.cpu()
+        if toks.shape != (SERVE_BATCH, SERVE_GEN) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"serve: bad tokens {toks.shape}")
+        steps = SERVE_GEN - 1
+        log(f"[5b] run {run}: prefill {t_pre * 1e3:.3f} ms "
+            f"({SERVE_BATCH} x {SERVE_PROMPT} tokens, "
+            f"{SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} prompt tokens/s); "
+            f"decode {t_dec / steps * 1e3:.3f} ms/token over {steps} steps "
+            f"({SERVE_BATCH * steps / t_dec:.1f} tokens/s at batch "
+            f"{SERVE_BATCH}); K4 launches {n_pre} in prefill, {n_dec} in "
+            f"decode (host clock, synchronized)")
+        outs.append(toks)
+    launched = k4.launches                  # the path's; checks follow
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("serve: two runs gave different tokens")
+    if [c["window"] for c in calls] != [
+            cfg.window if kind == "local" else 0
+            for kind in cfg.pattern_layers]:
+        raise AssertionError("serve: K4 windows do not follow the pattern")
+    errs = {}
+    for layer, (q, k, v, kw, out) in sorted(captured.items()):
+        kind = cfg.pattern_layers[layer]
+        tag = f"[5b] K4 layer {layer} ({kind}), the prompt's q/k/v:"
+        errs[layer], _, want = k4_check(tag, q, k, v, **kw)
+        k4_planted_faults(tag, q, k, v, kw["window"], want)
+        got = k4.flash_attention(q, k, v, **kw)
+        if not torch.equal(got, out):
+            raise AssertionError("serve: K4 is not deterministic")
+    log(f"[5b] tokens[0][:8] = {outs[0][0, :8].tolist()}; two runs agree")
+    return captured, errs, launched, (engine, batch)
+
+
+def phase_kernels(dev, launches, spin, reqs, captured, k4_errs):
+    """Time K1-K4 at their paths' shapes.  Returns the entries of the
+    ``kernels`` line."""
     import numpy as np
     import torch
     from repro_torch.core import matching, packet as pkt
@@ -528,6 +800,97 @@ def phase_kernels(dev, launches, spin):
     bound = (3 * 4 << 20) / HBM_BYTES_PER_S * 1e3
     log(f"[6] K2 permutation S=I=1048576 int32: device {ms * 1e3:.3f} us, "
         f"torch.take {lib * 1e3:.3f} us, bound {bound * 1e3:.3f} us")
+
+    # K3 at the checksum path's shape (64 ICMP echo requests), and at
+    # 65,536 random frames for the record.  Bytes: the live words, the
+    # lengths read and the int64 checksums written.
+    from repro_torch.kernels.checksum import ops as k3, ref as k3ref
+    rng = np.random.default_rng(13)
+    big = (torch.as_tensor(rng.integers(1, 256, (65536, pkt.MTU)).astype(
+        np.uint8), device=dev), torch.as_tensor(rng.integers(
+            0, pkt.MTU + 1, 65536).astype(np.int32), device=dev))
+    for tag, (d, ln) in (("path", (reqs.data, reqs.length)),
+                         ("random", big)):
+        start = pkt.L4_BASE
+        words = ((torch.div(ln.long() + 1, 2, rounding_mode="floor")
+                  .clamp(max=pkt.MTU // 2) - start // 2).clamp(min=0))
+        nbytes = int(words.sum()) * 2 + ln.numel() * (4 + 8)
+        got = k3.internet_checksum(d, ln, start=start)
+        err = int((got != k3ref.checksum_ref(d, ln, start)).sum())
+        if err:
+            raise AssertionError("K3 mismatch at the timed shape")
+        ms, host = time_ms(lambda: k3.internet_checksum(d, ln, start=start))
+        plain, phost = time_ms(lambda: k3ref.checksum_ref(d, ln, start))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[6] K3 {tag} N={ln.numel()}: device {ms * 1e3:.3f} us "
+            f"(wrapper issues a call in {host * 1e3:.2f} us), plain device "
+            f"{plain * 1e3:.3f} us (issued in {phost * 1e3:.2f} us), bound "
+            f"{bound * 1e3:.3f} us ({nbytes} B)")
+        if tag == "path":
+            out.append(dict(
+                name="checksum", route="cuda",
+                source="src/repro_torch/kernels/checksum/checksum.cu",
+                replaces="src/repro/kernels/checksum/checksum.py:48",
+                launches=launches["checksum"], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None))
+
+    # K4 on the prompt's own q/k/v of a global and a local layer of the
+    # serving path; SDPA on the same tensors as the yardstick
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
+    for layer in sorted(captured, reverse=True):          # global first
+        q, k, v, kw, _ = captured[layer]
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        w = kw["window"]
+        i = torch.arange(sq)
+        hi = i.clamp(max=sk - 1)
+        lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
+        pairs = int((hi - lo + 1).clamp(min=0).sum())
+        n_ops = 4 * d * pairs * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if n_ops / BF16_OPS_PER_S > \
+            nbytes / HBM_BYTES_PER_S else "bytes"
+        ms, host = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
+        plain, _ = time_ms(lambda: k4ref.flash_attention_ref(q, k, v, **kw),
+                           runs=5, per_run=4)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if w:
+            ii = torch.arange(sq, device=dev)[:, None]
+            jj = torch.arange(sk, device=dev)[None, :]
+            mask = (jj <= ii) & (jj > ii - w)
+            sdpa = dict(attn_mask=mask, enable_gqa=True)
+        else:
+            sdpa = dict(is_causal=True, enable_gqa=True)
+        lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa))
+        lib_err = (F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+                   .transpose(1, 2).float() - k4.flash_attention(
+                       q, k, v, **kw).float()).abs().max().item()
+        choice = torch._fused_sdp_choice(
+            qt, kt, vt, sdpa.get("attn_mask"), 0.0,
+            sdpa.get("is_causal", False), enable_gqa=True)
+        log(f"[6] K4 layer {layer} ({'local, window %d' % w if w else 'global'})"
+            f" q{tuple(q.shape)} k{tuple(k.shape)}: device {ms * 1e3:.3f} us "
+            f"(issued in {host * 1e3:.2f} us), plain device "
+            f"{plain * 1e3:.3f} us, SDPA ({SDPBackend(choice).name}) "
+            f"{lib * 1e3:.3f} us (differs from K4 by {lib_err:.3e}), bound "
+            f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
+            f"{n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{bound / ms * 100:.1f} % of the bound)")
+        if not w:
+            out.append(dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:100",
+                launches=launches["flash_attention"],
+                max_abs_err=max(k4_errs.values()), ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib))
     return out
 
 
@@ -538,14 +901,20 @@ def main() -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.kernels.ddt import ops as k2   # fails outside a checkout
+    from repro_torch.kernels.checksum import ops as k3
+    from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.matcher import ops as k1
+    from repro_torch import card_line, configs
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     phase_build()
     phase_k1(dev)
     phase_k2(dev)
+    phase_k3(dev)
+    phase_k4(dev)
     # the main path: launches are counted from here to the end of phase 5
     k1.launches = k2.launches = 0
     steps, replay = phase_main_path(dev)
@@ -556,15 +925,34 @@ def main() -> int:
         f"(= 2 x {calls} ingest calls)")
     if launches != {"match": steps + calls, "ddt_gather": 2 * calls}:
         raise AssertionError(f"main path launches {launches}")
-    kernels = phase_kernels(dev, launches, spin)
+    # the checksum path and the serving path, each counted on its own
+    k3.launches = 0
+    reqs, ck_calls = phase_checksum_path(dev)
+    launches["checksum"] = k3.launches
+    k4.launches = 0
+    captured, k4_errs, launches["flash_attention"], serve = phase_serve(dev)
+    n_layers = configs.get_config(SERVE_ARCH).n_layers
+    log(f"[5b] path launches: K3 {launches['checksum']} (= {ck_calls} "
+        f"batch calls), K4 {launches['flash_attention']} (= 2 prefills x "
+        f"{n_layers} layers)")
+    if (launches["checksum"], launches["flash_attention"]) != (
+            ck_calls, 2 * n_layers):
+        raise AssertionError(f"path launches {launches}")
+    kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs)
     # last, because the profiler's tracing may slow later launches: one
     # Fig 10 step (the complex stream's first batch, replayed) profiled
     nic, st, batch = replay
-    n_k, busy, wall, names = profile_step(lambda: nic.step(st, batch))
-    log(f"[7] profiled NIC step: {n_k} device kernels, device busy "
-        f"{busy:.1f} us of {wall:.1f} us wall (idle share "
-        f"{1 - busy / wall:.3f}, profiler on); commonest "
-        f"{[(n[:60], c) for n, c in names]}")
+    engine, prompt = serve
+    state = engine.prefill(prompt)
+    for what, fn in (("NIC step", lambda: nic.step(st, batch)),
+                     ("serving prefill", lambda: engine.prefill(prompt)),
+                     ("serving decode step", lambda: engine.step(state))):
+        n_k, busy, wall, names, top = profile_step(fn)
+        log(f"[7] profiled {what}: {n_k} device kernels, device busy "
+            f"{busy:.1f} us of {wall:.1f} us wall (idle share "
+            f"{1 - busy / wall:.3f}, profiler on); commonest "
+            f"{[(n[:60], c) for n, c in names]}; most device time "
+            f"{[(n[:60], round(us, 1)) for n, us in top]}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ the expect table) are held as ``int64`` masked to 32 bits, because
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -28,3 +30,15 @@ def resolve_device(device="cuda") -> torch.device:
             "repro_torch: device 'cuda' requested but torch.cuda is not "
             "available; pass device='cpu' to run the plain versions")
     return dev
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first GPU as nvidia-smi reports them."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed ({e})"
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 and \
+        r.stdout.strip() else f"nvidia-smi failed ({r.returncode})"

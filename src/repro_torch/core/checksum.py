@@ -1,14 +1,17 @@
-"""Internet checksum, handler-side form; PyTorch port of
-``internet_checksum_1`` in ``repro.core.checksum``.
+"""Internet checksum, handler-side and batched-kernel forms; PyTorch port
+of ``repro.core.checksum``.
 
-The batched checksum kernel (K3) is not on this slice's path and is not
-ported yet.
+``internet_checksum_1`` is the form the ICMP handler calls, as in the JAX
+package; ``internet_checksum_batch`` goes through the batched kernel K3
+(:mod:`repro_torch.kernels.checksum`), which launches on CUDA tensors.
+Both compute the same function.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packet import MTU
+from repro_torch.kernels.checksum import ops as checksum_ops
+from repro_torch.kernels.checksum.ref import checksum_ref
 
 
 def internet_checksum_1(data: torch.Tensor, length: torch.Tensor, start: int
@@ -17,15 +20,13 @@ def internet_checksum_1(data: torch.Tensor, length: torch.Tensor, start: int
 
     data (N, MTU) uint8, length (N,) int32; returns (N,) int64 (u16 value).
     Words are read up to ``(length + 1) // 2``, so for an odd length the
-    byte after the last one is summed too, as in the JAX package.
+    byte after the last one is summed too, as in the JAX package.  Plain
+    torch on every device.
     """
-    b = data.to(torch.int64).reshape(-1, MTU // 2, 2)
-    words = (b[..., 0] << 8) | b[..., 1]
-    w_iota = torch.arange(MTU // 2, dtype=torch.int32, device=data.device)
-    live = (w_iota[None, :] >= start // 2) \
-        & (w_iota[None, :] < torch.div(length + 1, 2,
-                                       rounding_mode="floor")[:, None])
-    s = torch.where(live, words, 0).sum(dim=1)
-    s = (s & 0xFFFF) + (s >> 16)
-    s = (s & 0xFFFF) + (s >> 16)
-    return (~s) & 0xFFFF
+    return checksum_ref(data, length, start)
+
+
+def internet_checksum_batch(data: torch.Tensor, lengths: torch.Tensor,
+                            start: int) -> torch.Tensor:
+    """The same checksum through kernel K3 (plain version on the CPU)."""
+    return checksum_ops.internet_checksum(data, lengths, start=start)

@@ -25,6 +25,8 @@ BUILD_DIR = KERNELS_DIR / "_build"
 SOURCES = {
     "matcher": KERNELS_DIR / "matcher" / "matcher.cu",
     "ddt": KERNELS_DIR / "ddt" / "ddt_gather.cu",
+    "checksum": KERNELS_DIR / "checksum" / "checksum.cu",
+    "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,130 @@
+"""Shared layers: norms, rotary embeddings, MLP variants, embedding and
+logits; PyTorch port of ``repro.models.layers``.
+
+Parameters are held in ``nn.ParameterDict``s keyed as in the JAX package's
+parameter trees (``{"scale"}``, ``{"up", "gate", "down"}``, ...), so the
+functions here read them the same way.  ``apply_mrope`` and
+``sinusoid_positions`` belong to the vlm and encdec families, which are not
+ported yet (ROADMAP.md §1 item 11).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """Serving parameter: no gradient is kept."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(shape, scale: float, dtype, g: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, dtype=dtype, device=g.device,
+                       generator=g) * scale
+
+
+# ------------------------------------------------------------------- norms
+def rmsnorm_init(d: int, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": param(torch.ones(d, dtype=dtype,
+                                                       device=device))})
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Computed in float32 and cast back to ``x``'s dtype."""
+    orig = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * p["scale"].to(torch.float32)).to(orig)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """float64, as the JAX package computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
+                   ) -> torch.Tensor:
+    """float32 frequencies on ``device``, copied there once: a copy from
+    the host on every call would stall the stream of a decode step."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Half-split rotation.  x: (B, S, H, D); positions: (B, S) int."""
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    angles = positions[..., None].to(torch.float32) * freqs     # (B,S,D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- MLP
+def mlp_init(g: torch.Generator, cfg: ModelConfig, d_ff: int
+             ) -> nn.ParameterDict:
+    d, dt = cfg.d_model, dtype_of(cfg.dtype)
+    s_in = float(1.0 / np.sqrt(d))
+    s_out = float(1.0 / np.sqrt(d_ff))
+    p = {"up": _normal((d, d_ff), s_in, dt, g),
+         "down": _normal((d_ff, d), s_out, dt, g)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["gate"] = _normal((d, d_ff), s_in, dt, g)
+    return nn.ParameterDict({k: param(v) for k, v in p.items()})
+
+
+def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    up = x @ p["up"]
+    if kind == "swiglu":
+        h = F.silu(x @ p["gate"]) * up
+    elif kind == "geglu":
+        h = F.gelu(x @ p["gate"], approximate="tanh") * up
+    elif kind == "squared_relu":                     # nemotron-4
+        h = F.relu(up).square()
+    elif kind == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(kind)
+    return h @ p["down"]
+
+
+# --------------------------------------------------------------- embedding
+def embed_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
+    dt = dtype_of(cfg.dtype)
+    v = cfg.padded_vocab
+    p = {"tok": _normal((v, cfg.d_model), 0.02, dt, g)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _normal((cfg.d_model, v),
+                               float(1.0 / np.sqrt(cfg.d_model)), dt, g)
+    return nn.ParameterDict({k: param(t) for k, t in p.items()})
+
+
+def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.to(torch.int64), p["tok"])
+
+
+def lm_logits(p, x: torch.Tensor, tie: bool, out_dtype=torch.float32,
+              true_vocab: int = 0) -> torch.Tensor:
+    """Logits over the (possibly padded) vocab; padded lanes get -1e9."""
+    w = p["tok"].T if tie else p["lm_head"]
+    logits = (x @ w).to(out_dtype)
+    v = w.shape[-1]
+    if true_vocab and true_vocab < v:
+        lane = torch.arange(v, device=logits.device)
+        logits = torch.where(lane < true_vocab, logits, -1e9)
+    return logits

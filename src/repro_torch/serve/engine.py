@@ -1,0 +1,57 @@
+"""Serving engine: prefill + greedy decode; PyTorch port of
+``repro.serve.engine``.
+
+The JAX engine jits prefill and decode and donates the cache to decode.
+Here both run eagerly under ``torch.inference_mode``, and decode updates
+the cache in place (the same memory effect as the donation).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models.model import Cache, Model, Params
+
+
+@dataclasses.dataclass
+class ServeState:
+    cache: Cache
+    last_tokens: torch.Tensor   # (B, 1) int64
+    pos: int                    # next position to write
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params: Params, max_len: int):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor]) -> ServeState:
+        logits, cache = self.model.prefill(self.params, batch,
+                                           max_len=self.max_len)
+        first = torch.argmax(logits, dim=-1)[:, None]
+        return ServeState(cache=cache, last_tokens=first,
+                          pos=batch["tokens"].shape[1])
+
+    @torch.inference_mode()
+    def step(self, state: ServeState) -> Tuple[torch.Tensor, ServeState]:
+        if state.pos >= self.max_len:
+            raise ValueError(f"ServeEngine: position {state.pos} is past "
+                             f"max_len {self.max_len}")
+        logits, cache = self.model.decode_step(
+            self.params, state.last_tokens, state.cache, state.pos)
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        return nxt, ServeState(cache=cache, last_tokens=nxt,
+                               pos=state.pos + 1)
+
+    def generate(self, state: ServeState, steps: int
+                 ) -> Tuple[torch.Tensor, ServeState]:
+        """``steps`` greedy tokens (B, steps), the first from the prefill."""
+        toks = [state.last_tokens]
+        for _ in range(steps - 1):
+            nxt, state = self.step(state)
+            toks.append(nxt)
+        return torch.cat(toks, dim=1), state

@@ -1,7 +1,15 @@
-"""The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher) and K2
-(DDT gather) against their plain versions, and ``SpinNIC.step`` /
-``SpinIngest`` on CUDA against the same calls on the CPU.  Tolerance:
-exact (0); K2 compares bit patterns.
+"""The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher), K2
+(DDT gather), K3 (checksum) and K4 (flash attention) against their plain
+versions, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
+on the CPU, and the serving path's kernel launches.  Tolerance: exact (0)
+for K1-K3; K2 compares bit patterns.  K4 holds two limits at once: the
+max abs error (bfloat16 0.06, the tolerance the JAX package holds its own
+kernel to; float32 1e-4) and the row error, each row's largest error over
+that row's RMS (bfloat16 0.1, float32 1e-4), which sees a fault in the
+rows whose outputs are small.  bfloat16: the kernel rounds P to bfloat16
+before P.V, as the TPU kernel does, and the output is rounded to
+bfloat16; float32: exp and the sums over up to 1,000 keys run in another
+order.
 
 Every test here is marked ``cuda`` and skips where torch.cuda is not
 available.  This file imports nothing of JAX, so it also runs on a machine
@@ -14,9 +22,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import apps, ddt, packet as pkt, slmp  # noqa: E402
-from repro_torch.core import matching, overlap, spin_nic  # noqa: E402
+from repro_torch.core import checksum, matching, overlap, spin_nic  # noqa: E402
+from repro_torch.kernels.checksum import ops as ck_ops  # noqa: E402
+from repro_torch.kernels.checksum.ref import checksum_ref  # noqa: E402
 from repro_torch.kernels.ddt import ops as ddt_ops  # noqa: E402
 from repro_torch.kernels.ddt.ref import ddt_gather_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref, row_error)
 from repro_torch.kernels.matcher import ops as match_ops  # noqa: E402
 from repro_torch.kernels.matcher.ref import match_ref  # noqa: E402
 from repro_torch.train import data as tdata  # noqa: E402
@@ -175,3 +188,103 @@ def test_spin_ingest_and_overlap_on_cuda(cuda):
     b, rb = overlap.overlapped_loop(gi, compute, feeds, s0, device=cuda)
     assert torch.equal(a, b)
     assert 0.0 <= ra.overlap_ratio <= 1.0 and 0.0 <= rb.overlap_ratio <= 1.0
+
+
+@pytest.mark.parametrize("start", [0, 34, 35])
+def test_checksum_kernel_bit_exact(cuda, start):
+    rng = np.random.default_rng(start)
+    n = 4099
+    data = rng.integers(1, 256, (n, pkt.MTU)).astype(np.uint8)
+    lengths = rng.integers(0, pkt.MTU + 1, n).astype(np.int32)
+    lengths[:5] = [0, 1, start + 1, pkt.MTU - 1, pkt.MTU]
+    d, ln = torch.as_tensor(data), torch.as_tensor(lengths)
+    before = ck_ops.launches
+    got = checksum.internet_checksum_batch(d.to(cuda), ln.to(cuda), start)
+    torch.cuda.synchronize()
+    assert ck_ops.launches == before + 1
+    assert torch.equal(got.cpu(), checksum_ref(d, ln, start))
+    icmp = [pkt.make_icmp_echo(rng.integers(0, 256, k).astype(np.uint8))
+            for k in range(0, 130, 3)]
+    data, lengths, _ = pkt.stack_frames_np(icmp)
+    got = checksum.internet_checksum_batch(
+        torch.as_tensor(data, device=cuda),
+        torch.as_tensor(lengths, device=cuda), pkt.L4_BASE)
+    assert not got.any()
+
+
+FA_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
+    (1, 300, 300, 4, 1, 256, True, 0, torch.bfloat16),
+    (2, 300, 300, 4, 1, 256, True, 64, torch.bfloat16),
+    (2, 200, 200, 16, 8, 128, True, 0, torch.bfloat16),
+    (1, 1000, 1000, 2, 1, 128, True, 0, torch.bfloat16),
+    (2, 70, 100, 2, 2, 64, False, 0, torch.bfloat16),
+    (1, 130, 77, 4, 2, 128, False, 40, torch.bfloat16),
+    (1, 65, 65, 2, 1, 64, True, 16, torch.float32),
+    (2, 40, 90, 4, 4, 256, False, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_vs_plain(cuda, case):
+    b, sq, sk, h, kv, d, causal, window, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), device=cuda, generator=g).to(dtype)
+    k = torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
+    v = torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    atol, row_tol = (0.06, 0.1) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+    row = row_error(got, want)
+    assert row <= row_tol, row
+
+
+def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
+    def qkv(d, dtype):
+        return (torch.zeros((1, 8, 2, d), dtype=dtype, device=cuda),
+                torch.zeros((1, 8, 1, d), dtype=dtype, device=cuda),
+                torch.zeros((1, 8, 1, d), dtype=dtype, device=cuda))
+    before = fa_ops.launches
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*qkv(96, torch.bfloat16))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*qkv(64, torch.float16))
+    q, k, v = qkv(128, torch.bfloat16)
+    strided = torch.zeros((1, 8, 1, 256), dtype=torch.bfloat16,
+                          device=cuda)[..., ::2]
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, strided, v)
+    assert fa_ops.launches == before
+
+
+def test_serving_path_launches_k4_per_layer(cuda):
+    """A small dense model whose head_dim the kernel takes: K4 runs once
+    per layer in prefill and never in decode; the CUDA logits (float32,
+    so K4's float32 kernel) match the CPU's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma3-1b"),
+                              head_dim=64, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    cpu_params.load_state_dict(params.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    eng, ceng = ServeEngine(model, params, 56), ServeEngine(model,
+                                                            cpu_params, 56)
+    before = fa_ops.launches
+    st = eng.prefill({"tokens": tokens.to(cuda)})
+    assert fa_ops.launches - before == cfg.n_layers
+    toks, _ = eng.generate(st, 8)
+    torch.cuda.synchronize()
+    assert fa_ops.launches - before == cfg.n_layers
+    ctoks, _ = ceng.generate(ceng.prefill({"tokens": tokens}), 8)
+    assert torch.equal(toks.cpu(), ctoks)
