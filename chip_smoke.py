@@ -8,7 +8,10 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA; it imports nothing of JAX
 and nothing of the JAX package ``repro``.  Phases:
 
   1. the card's name and power limit; build every kernel from the
-     checkout's sources (one nvcc per source, all started together);
+     checkout's sources (one nvcc per source, all started together); K4
+     must be the warp-specialised Hopper kernel: its ptxas report shows
+     no spills and no ignored ``setmaxnreg`` (C7508), and its SASS
+     (``cuobjdump -sass``) holds HGMMA and UTMALDG instructions;
   2. K1 (matcher) against its plain PyTorch version on the card, bit for
      bit: built-in and random rule tables over wire-correct and random
      frames, N = 64 and N = 65,536;
@@ -55,7 +58,8 @@ and nothing of the JAX package ``repro``.  Phases:
      3.35 TB/s, or operations over the bf16 tensor-core peak for K4), the
      plain version's time and, as a yardstick, ``torch.take``'s time for
      K2 and ``scaled_dot_product_attention``'s for K4 (the port never
-     calls either);
+     calls either); K4's entry of the ``kernels`` line holds the global
+     layer's numbers and, as ``local_*``, the local layer's;
   7. one NIC step, one serving prefill and one decode step under
      torch.profiler: kernels per call, device busy time, the idle share it
      implies and the kernels with the most device time.
@@ -193,8 +197,45 @@ def phase_build():
         f"({len(build.SOURCES)} sources, parallel nvcc)")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 log(f"[1]   {name}: {line.strip()}")
+    check_k4_build(build)
+
+
+def check_k4_build(build):
+    """K4 must be the warp-specialised Hopper kernel: ptxas reports no
+    spills and does not ignore ``setmaxnreg`` (warning C7508), and its SASS
+    holds warpgroup MMAs (HGMMA) and TMA loads (UTMALDG)."""
+    import re
+    import shutil
+    import subprocess
+    from repro_torch.kernels.flash_attention import ops as k4
+    text = build.build_logs.get("flash_attention")
+    if text is None:
+        raise AssertionError("K4: no ptxas report (the library was built "
+                             "without one; delete src/repro_torch/kernels/"
+                             "_build and run again)")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                         text)]
+    if not spills or any(spills):
+        raise AssertionError(f"K4: ptxas reports spills {spills}")
+    if "C7508" in text or "setmaxnreg ignored" in text:
+        raise AssertionError("K4: ptxas ignored setmaxnreg (C7508)")
+    regs = re.findall(r"Used (\d+) registers", text)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(
+        "flash_attention"))], capture_output=True, text=True,
+        check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")}
+    setmax = sorted({" ".join(m.split()) for m in re.findall(
+        r"USETMAXREG[^;]*", sass)})
+    log(f"[1] K4 ptxas: registers at entry per kernel {regs}, spill bytes "
+        f"{sum(spills)}, no C7508; dynamic shared memory per bf16 block "
+        f"{ {d: k4.smem_bytes(d) for d in k4.HEAD_DIMS} } B; SASS: {counts}"
+        f", register moves {setmax}")
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"K4: no HGMMA or UTMALDG in the SASS {counts}")
 
 
 def phase_k1(dev):
@@ -836,10 +877,17 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs):
                 library_ms=None))
 
     # K4 on the prompt's own q/k/v of a global and a local layer of the
-    # serving path; SDPA on the same tensors as the yardstick
+    # serving path; SDPA on the same tensors as the yardstick.  The entry's
+    # main numbers are the global layer's; local_* are the local layer's.
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
+    k4_entry = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:100",
+        launches=launches["flash_attention"],
+        max_abs_err=max(k4_errs.values()))
     for layer in sorted(captured, reverse=True):          # global first
         q, k, v, kw, _ = captured[layer]
         b, sq, h, d = q.shape
@@ -881,16 +929,13 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs):
             f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
             f"{n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
             f"{bound / ms * 100:.1f} % of the bound)")
-        if not w:
-            out.append(dict(
-                name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/flash_attention/"
-                       "flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/"
-                         "flash_attention.py:100",
-                launches=launches["flash_attention"],
-                max_abs_err=max(k4_errs.values()), ms=ms, plain_ms=plain,
-                bound_ms=bound, bound_by=by, library_ms=lib))
+        if w:
+            k4_entry.update(local_ms=ms, local_plain_ms=plain,
+                            local_bound_ms=bound, local_library_ms=lib)
+        else:
+            k4_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
+                            bound_by=by, library_ms=lib)
+    out.append(k4_entry)
     return out
 
 

@@ -4,8 +4,10 @@ Each kernel source (``kernels/<name>/<name>.cu``) exports a plain C
 interface and is compiled on its own into a shared library for
 ``sm_90a``, at first use, into ``kernels/_build/`` (listed in
 ``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt.  ``build_all`` starts one ``nvcc``
-per source at once, which is what ``chip_smoke.py`` calls up front.
+flags, so an edited source is rebuilt; the compiler's output is kept
+beside it (``.log``), so a later process that finds the library built
+still has its ptxas report.  ``build_all`` starts one ``nvcc`` per source
+at once, which is what ``chip_smoke.py`` calls up front.
 
 Nothing here runs when the package is imported.
 """
@@ -64,6 +66,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     build_logs[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -76,6 +79,10 @@ def build_all(names: List[str] = None) -> None:
         started = [(n, *_start(n)) for n in names if not _lib_path(n).exists()]
         for n, proc, tmp, out in started:
             _finish(n, proc, tmp, out)
+        for n in names:
+            saved = _lib_path(n).with_suffix(".log")
+            if n not in build_logs and saved.exists():
+                build_logs[n] = saved.read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

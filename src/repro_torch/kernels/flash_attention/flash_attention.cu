@@ -15,231 +15,573 @@
 //    inside the kernel, so padded keys never enter the softmax (the TPU
 //    kernel lets zero-padded keys in when causal is false).
 //  * Key tiles that the causal or window mask removes for the whole query
-//    tile are never loaded: a local layer at window 512 reads about
-//    (512 + 64) / 64 tiles per query tile instead of up to Sk / 64.
+//    tile are never loaded: a local layer at window 512 reads at most
+//    (512 + 128) / 64 tiles per query tile instead of up to Sk / 64.
 //
-// bfloat16 (the model's dtype): one block of 4 warps takes 64 query rows of
-// one (batch, head); each warp owns 16 rows.  Q, K and V tiles (64 rows x D)
-// sit in dynamic shared memory, rows padded by 16 bytes so that fragment
-// reads hit 32 distinct banks; at D = 256 that is 99 KiB, above the 48 KB
-// static limit, so the launcher raises the block's limit first.  S = Q K^T
-// and O += P V run on the tensor cores through warp-level
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate); the online softmax keeps the
-// running max and sum per row in registers, and P goes from the S
-// accumulator registers straight into the A fragment of P V.  The O
-// accumulator is 16 x D float32 per warp (D / 2 registers a thread).
+// What bounds it on the H100: operations.  At gemma3-1b's prefill (B 4,
+// S 2048, H 4, KV 1, D 256) a global layer does 4 D per live (query, key)
+// pair, about 34.4 GFLOP, or 35 us at the bf16 tensor-core peak, against
+// about 42 MB of q, k, v and o (13 us at 3.35 TB/s).  So the design keeps
+// the tensor cores fed and the loads off their path.
+//
+// bfloat16 (the model's dtype): one block of three warpgroups takes a query
+// tile of BQ = 128 rows of one (batch, head).
+//  * Warpgroup 2, the producer, gives its registers up (setmaxnreg.dec) and
+//    one of its threads issues every load through TMA: the Q tile once,
+//    then K and V tiles of 64 keys into a ring of shared-memory stages (2
+//    at D = 256, 4 below).  Each stage has a full barrier per operand
+//    (mbarrier transaction bytes) and an empty barrier per operand on which
+//    every consumer thread arrives once it is done with it.  The tensor
+//    maps (rank 4: D, S, heads, B, 128-byte swizzle) are built by the
+//    launcher from the tensors' strides; TMA fills rows past S with zeros.
+//  * Warpgroups 0 and 1, the consumers, own 64 query rows each and take
+//    the registers (setmaxnreg.inc).  S = Q K^T is wgmma m64n64k16 with Q
+//    and K read from swizzled shared memory.  The online softmax (log2
+//    domain, float32 max and sum) runs on the S accumulator; P is rounded
+//    to bf16 in the accumulator's own layout, which is wgmma's A-register
+//    layout, and O += P V is wgmma m64nDk16 with V as an MN-major
+//    (transposed) shared-memory operand.  O (64 x D float32, D / 2
+//    registers a thread) stays in registers.
+//  * The two consumers take turns on the tensor cores (two named barriers,
+//    in strict alternation): in its turn a warpgroup issues S_j = Q K_j^T
+//    and O += P_{j-1} V_{j-1}, then hands the turn over and runs the
+//    softmax of S_j while its P V is still in flight, so that one
+//    warpgroup's softmax overlaps the other's matrix products
+//    (FlashAttention-3's ping-pong and intra-warpgroup overlap).
+//  * Only the tiles that need it are masked (the causal diagonal, the
+//    window's edge, the ragged end); interior tiles take no mask.
+//  * Epilogue: O / l in bf16 into the warpgroup's own rows of Q's shared
+//    memory (the same swizzle), then one TMA store per 64 columns; TMA
+//    drops rows past Sq.
+//  * Blocks run the longest query tiles (causal: the last) first, and the
+//    query heads of one KV head next to each other, so that a GQA group
+//    reads the same K/V tiles while they are in L2.
 //
 // float32: one warp per query row, D / 32 elements a lane, the dot product
 // reduced across the warp and the softmax updated key by key with CUDA-core
 // FMA.  It exists for completeness (tests, small float32 configurations);
 // the serving path runs bfloat16.
-//
-// What bounds it on the H100: operations.  At gemma3-1b's prefill (B 4,
-// S 2048, H 4, KV 1, D 256) a global layer does 4 D per live (query, key)
-// pair, about 34.4 GFLOP, against about 42 MB of q, k, v and o.  This
-// first version uses mma.sync without asynchronous copies or warp
-// specialisation, and waits on each tile's load; wgmma and TMA are the
-// later redesign.
 
+#include <climits>
+#include <cmath>
 #include <cstdint>
+#include <cuda.h>          // CUtensorMap; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block (4 warps x 16)
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int NWARPS = 4;
-constexpr int PAD = 8;       // bf16 elements appended to each smem row
-constexpr float NEG = -1e30f;
+constexpr int BQ = 128;            // query rows per block (2 warpgroups x 64)
+constexpr int BK = 64;             // keys per shared-memory stage
+constexpr int WG = 128;            // threads per warpgroup
+constexpr int THREADS = 3 * WG;    // consumers 0 and 1, producer 2
+constexpr int ROW_BYTES = 128;     // one swizzled row: 64 bf16 of one panel
+constexpr int PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int F32_ROWS = 8;  // query rows (warps) per float32 block
+constexpr float NEG = -1e30f;
+constexpr int F32_ROWS = 8;        // query rows (warps) per float32 block
 
-struct Strides {
-  int64_t b, s, h;           // elements; the last dimension is contiguous
+template <int D>
+struct Tiles {
+  static constexpr int STAGES = D == 256 ? 2 : 4;
+  static constexpr int PANELS = D / 64;          // 64-column TMA boxes a row
+  static constexpr int Q_PANEL = BQ * ROW_BYTES;  // bytes of one Q panel
+  static constexpr int KV_PANEL = BK * ROW_BYTES;
+  static constexpr int KV_BYTES = PANELS * KV_PANEL;  // one K or V stage
+  static constexpr int Q_BYTES = PANELS * Q_PANEL;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // + barriers (q; per stage: K full, V full, K empty, V empty) + slack to
+  // align to 1 KiB
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+struct Strides {
+  int64_t b, s, h;                 // elements; the last dimension is contiguous
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the special-function unit; subnormal results flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + R) of one head into smem (row stride D + PAD); rows at
-// or beyond `valid` are zero.  16-byte loads, coalesced along D.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, Strides st,
-                                          int64_t b, int64_t head, int row0,
-                                          int valid) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < R * CH; c += NWARPS * 32) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(
-          src + b * st.b + static_cast<int64_t>(row0 + r) * st.s +
-          head * st.h + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + col) = val;
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// ---- TMA (coordinates innermost first: column, row, head, batch)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3) : "memory");
+}
+
+// ---- wgmma
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand whose
+// 1 KiB swizzle atoms (8 rows of 128 bytes) start on 1 KiB boundaries.
+// lbo: bytes between 64-element column panels (MN-major only; ignored for
+// K-major); sbo: bytes between groups of 8 rows.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define FA_ACC8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (m64 x n64, f32) (+)= a . b, a and b from shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_ACC8(0),
+        FA_ACC8(8),
+        FA_ACC8(16),
+        FA_ACC8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n64, f32) += a . b, a (bf16) from registers, b (MN-major)
+// from shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(0),
+        FA_ACC8(8),
+        FA_ACC8(16),
+        FA_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n128, f32) += a . b, a (bf16) from registers, b (MN-major)
+// from shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(0),
+        FA_ACC8(8),
+        FA_ACC8(16),
+        FA_ACC8(24),
+        FA_ACC8(32),
+        FA_ACC8(40),
+        FA_ACC8(48),
+        FA_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n256, f32) += a . b, a (bf16) from registers, b (MN-major)
+// from shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(0),
+        FA_ACC8(8),
+        FA_ACC8(16),
+        FA_ACC8(24),
+        FA_ACC8(32),
+        FA_ACC8(40),
+        FA_ACC8(48),
+        FA_ACC8(56),
+        FA_ACC8(64),
+        FA_ACC8(72),
+        FA_ACC8(80),
+        FA_ACC8(88),
+        FA_ACC8(96),
+        FA_ACC8(104),
+        FA_ACC8(112),
+        FA_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+#undef FA_ACC8
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int sq, int sk, int h,
-                   int group, Strides qs, Strides ks, Strides vs, int causal,
-                   int window, float scale_log2) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * LD;
-  __nv_bfloat16* sV = sK + BK * LD;
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, int sq, int sk,
+                   int h, int group, int causal, int window,
+                   float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int S = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;    // swizzle atoms: 1 KiB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + T::Q_BYTES;
+  const uint32_t sV = sK + S * T::KV_BYTES;
+  const uint32_t q_full = base + T::BAR_OFF;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + S + s); };
+  auto empty_k = [&](int s) { return q_full + 8u * (1 + 2 * S + s); };
+  auto empty_v = [&](int s) { return q_full + 8u * (1 + 3 * S + s); };
 
-  // the longest query tiles (causal: the last ones) are scheduled first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int64_t bi = blockIdx.y / h;
-  const int hi = blockIdx.y % h;
+  // block order: the last query tile of every (batch, head) first; heads of
+  // one KV head are neighbours
+  const int bh = gridDim.x / ((sq + BQ - 1) / BQ);
+  const int q0 = ((sq + BQ - 1) / BQ - 1 - static_cast<int>(blockIdx.x) / bh)
+                 * BQ;
+  const int bi = static_cast<int>(blockIdx.x) % bh / h;
+  const int hi = static_cast<int>(blockIdx.x) % bh % h;
   const int kvh = hi / group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row_a = q0 + warp * 16 + g;      // query of c0, c1; c2, c3: +8
-  const int row_b = row_a + 8;
 
-  load_tile<D, BQ>(sQ, q, qs, bi, hi, q0, sq - q0);
-
-  // key tiles with at least one live key for some query of this tile
-  const int k_hi = causal ? min(sk, q0 + BQ) : sk;
+  // key tiles with at least one live key for some query row of this tile
+  const int k_hi = causal ? min(sk, min(sq, q0 + BQ)) : sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int kb0 = k_lo / BK, kb1 = (k_hi + BK - 1) / BK;
+  // (at least one: where no key is live, one masked tile gives the rows 0)
+  const int kb0 = k_lo / BK, kb1 = max(kb0 + 1, (k_hi + BK - 1) / BK);
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_r[2] = {NEG, NEG};   // running max (log2 domain), rows a and b
-  float l_r[2] = {0.f, 0.f};   // this thread's part of the running sum
-
-  const __nv_bfloat16* qw = sQ + warp * 16 * LD;
-  for (int kb = kb0; kb < kb1; ++kb) {
-    const int key0 = kb * BK;
-    __syncthreads();           // the previous tiles are consumed
-    load_tile<D, BK>(sK, k, ks, bi, kvh, key0, sk - key0);
-    load_tile<D, BK>(sV, v, vs, bi, kvh, key0, sk - key0);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      uint32_t a[4];
-      a[0] = ld32(qw + g * LD + c);
-      a[1] = ld32(qw + (g + 8) * LD + c);
-      a[2] = ld32(qw + g * LD + c + 8);
-      a[3] = ld32(qw + (g + 8) * LD + c + 8);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kr = sK + (nt * 8 + g) * LD + c;
-        mma_bf16(s[nt], a, ld32(kr), ld32(kr + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty_k(s), 2 * WG);
+      mbar_init(empty_v(s), 2 * WG);
     }
-
-    // mask, scale, and the tile's row maxima
-    uint32_t live = 0;
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
-        const int col = key0 + nt * 8 + 2 * t + (e & 1);
-        bool ok = col < sk;
-        if (causal) ok = ok && col <= row;
-        if (window > 0) ok = ok && col > row - window;
-        live |= static_cast<uint32_t>(ok) << (nt * 4 + e);
-        s[nt][e] = ok ? s[nt][e] * scale_log2 : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {   // a row's 64 scores span a quad of lanes
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      corr[r] = exp2f(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (live >> (nt * 4 + e)) & 1u
-                            ? exp2f(s[nt][e] - m_r[e >> 1]) : 0.f;
-        s[nt][e] = p;
-        l_r[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= corr[0]; acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1]; acc[i][3] *= corr[1];
-    }
-
-    // O += P V: P's accumulator layout is the A fragment of the next mma
-    const unsigned short* sVu = reinterpret_cast<const unsigned short*>(sV);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const unsigned short* vr = sVu + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const unsigned short* p = vr + dt * 8;
-        const uint32_t b0 = p[0] | (static_cast<uint32_t>(p[LD]) << 16);
-        const uint32_t b1 = p[8 * LD] | (static_cast<uint32_t>(p[9 * LD]) << 16);
-        mma_bf16(acc[dt], a, b0, b1);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    const int row = r ? row_b : row_a;
-    if (row < sq) {
-      const float den = fmaxf(l_r[r], 1e-30f);
-      __nv_bfloat16* orow =
-          o + ((bi * sq + row) * static_cast<int64_t>(h) + hi) * D;
+      for (int p = 0; p < T::PANELS; ++p)
+        tma_load(sQ + p * T::Q_PANEL, &tq, q_full, p * 64, q0, hi, bi);
+      for (int kb = kb0; kb < kb1; ++kb) {
+        const int i = kb - kb0, s = i % S, n = i / S;
+        if (n > 0) mbar_wait(empty_k(s), (n - 1) & 1);
+        mbar_expect_tx(k_full(s), T::KV_BYTES);
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-            pack_bf16(acc[dt][2 * r] / den, acc[dt][2 * r + 1] / den);
+        for (int p = 0; p < T::PANELS; ++p)
+          tma_load(sK + s * T::KV_BYTES + p * T::KV_PANEL, &tk, k_full(s),
+                   p * 64, kb * BK, kvh, bi);
+        if (n > 0) mbar_wait(empty_v(s), (n - 1) & 1);
+        mbar_expect_tx(v_full(s), T::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p)
+          tma_load(sV + s * T::KV_BYTES + p * T::KV_PANEL, &tv, v_full(s),
+                   p * 64, kb * BK, kvh, bi);
       }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = q0 + 64 * wg;                 // this warpgroup's rows
+    const int r_last = min(r0 + 63, sq - 1);     // < r0: no live row
+    const int row_a = r0 + 16 * warp + g;   // accumulator rows (see softmax)
+    const int row_b = row_a + 8;
+    const uint32_t qw = sQ + wg * 64 * ROW_BYTES;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};   // running max, log2 domain
+    float l_r[2] = {0.f, 0.f};               // this thread's part of the sum
+
+    // Per key tile j, in this warpgroup's turn on the tensor cores (named
+    // barriers 3 and 4, taken in strict alternation): issue S_j = Q K_j^T
+    // and O += P_{j-1} V_{j-1}, hand the turn over, then run the softmax of
+    // S_j while P_{j-1} V_{j-1} is still in flight.  The first tile's S and
+    // the last tile's P V are peeled off the loop: ptxas serializes wgmma
+    // that is issued under a branch.
+    auto sched_sync = [&] {
+      asm volatile("bar.sync %0, %1;\n" :: "r"(3 + wg), "n"(2 * WG) : "memory");
+    };
+    auto sched_hand_over = [&] {
+      asm volatile("bar.arrive %0, %1;\n" :: "r"(4 - wg), "n"(2 * WG)
+                   : "memory");
+    };
+    auto issue_s = [&](float (&sc)[32], int s) {   // S = Q K^T, D / 16 steps
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;        // 16 bf16 of a panel
+        wgmma_ss_n64(sc, smem_desc(qw + (ks / 4) * T::Q_PANEL + off, 16, 1024),
+                     smem_desc(sK + s * T::KV_BYTES + (ks / 4) * T::KV_PANEL +
+                               off, 16, 1024),
+                     ks > 0);
+      }
+      wgmma_commit();
+    };
+    uint32_t pa[4][4];           // P_{j-1} in bf16: the A registers of P V
+    float corr[2];               // rescales O before P_{j-1} V_{j-1} is added
+    // O *= corr, then O += P V_{stage s}, once V has landed
+    auto issue_pv = [&](int s, uint32_t par) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+      mbar_wait(v_full(s), par);
+      wgmma_fence();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(o, pa[kk],
+                    smem_desc(sV + s * T::KV_BYTES + kk * 16 * ROW_BYTES,
+                              T::KV_PANEL, 1024));
+      wgmma_commit();
+    };
+    // online softmax of tile kb on its accumulator (element 4j + e is row
+    // e < 2 ? row_a : row_b, key 64 kb + 8j + 2tq + (e & 1)); leaves P_kb
+    // (float32) in sc and the factor for O in corr
+    auto softmax = [&](float (&sc)[32], int kb) {
+      const int c0 = kb * BK, c1 = c0 + BK - 1;
+      if (c1 >= sk || (causal && c1 > r0) ||
+          (window > 0 && c0 <= r_last - window)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? row_a : row_b;
+            const int col = c0 + 8 * j + 2 * tq + (e & 1);
+            bool ok = col < sk;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && col > row - window;
+            if (!ok) sc[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float mu[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {    // a row's 64 scores span a quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r] * scale_log2);
+        mu[r] = m_new == -INFINITY ? 0.f : m_new;    // no live key yet
+        corr[r] = exp2_ftz(m_r[r] - mu[r]);
+        m_r[r] = m_new;
+        l_r[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float p = exp2_ftz(fmaf(sc[j], scale_log2, -mu[(j >> 1) & 1]));
+        sc[j] = p;
+        l_r[(j >> 1) & 1] += p;
+      }
+    };
+    // P in bf16: keys 16kk..16kk+15 of the accumulator are the A registers
+    // of the kk-th k16 step of P V
+    auto keep_p = [&](const float (&sc)[32]) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      }
+    };
+
+    if (wg == 1) sched_hand_over();    // warpgroup 0 takes the first turn
+    mbar_wait(q_full, 0);
+    {                                  // tile kb0: S only
+      float sc[32];
+      mbar_wait(k_full(0), 0);
+      sched_sync();
+      issue_s(sc, 0);
+      sched_hand_over();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(empty_k(0));
+      softmax(sc, kb0);
+      keep_p(sc);
+    }
+    for (int kb = kb0 + 1; kb < kb1; ++kb) {
+      const int i = kb - kb0, s = i % S, sp = (i - 1) % S;
+      const uint32_t par = (i / S) & 1, par_p = ((i - 1) / S) & 1;
+      float sc[32];
+      mbar_wait(k_full(s), par);
+      sched_sync();
+      issue_s(sc, s);
+      issue_pv(sp, par_p);
+      sched_hand_over();
+      wgmma_wait<1>();                 // S_j is done; P_{j-1} V_{j-1} runs on
+      fence_regs(sc);
+      mbar_arrive(empty_k(s));
+      softmax(sc, kb);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty_v(sp));
+      keep_p(sc);
+    }
+    {                                  // the last tile's P V
+      const int i = kb1 - 1 - kb0;
+      issue_pv(i % S, (i / S) & 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(empty_v(i % S));
+    }
+
+    if (r_last < r0) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    const float inv_a = 1.f / fmaxf(l_r[0], 1e-30f);
+    const float inv_b = 1.f / fmaxf(l_r[1], 1e-30f);
+    // O into this warpgroup's rows of Q's shared memory, in the same
+    // 128-byte swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+    unsigned char* ow = smem + wg * 64 * ROW_BYTES +
+                        (16 * warp + g) * ROW_BYTES + 4 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      unsigned char* p = ow + (j / 8) * T::Q_PANEL + ((j % 8) ^ g) * 16;
+      *reinterpret_cast<uint32_t*>(p) =
+          pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      *reinterpret_cast<uint32_t*>(p + 8 * ROW_BYTES) =
+          pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(WG) : "memory");
+    if (t == 0) {
+#pragma unroll
+      for (int p = 0; p < T::PANELS; ++p)
+        tma_store(&to, qw + p * T::Q_PANEL, p * 64, r0, hi, bi);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   }
 }
@@ -290,44 +632,100 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   for (int r = 0; r < R; ++r) op[lane + 32 * r] = acc[r] / den;
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
+// that the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// Rank-4 map of a bf16 tensor (B, S, heads, D) with element strides `st`,
+// dimensions innermost first (D, S, heads, B); a box is 64 columns x `rows`
+// rows of one head, 128-byte swizzled.  Out-of-range rows read as zeros
+// and are not written.
+bool tensor_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
+                int b, Strides st, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int h, int group, Strides qs, Strides ks,
+                int sq, int sk, int h, int kvh, Strides qs, Strides ks,
                 Strides vs, int causal, int window, cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * (D + PAD) * 2;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
-  const dim3 grid((sq + BQ - 1) / BQ, b * h);
+  using T = Tiles<D>;
+  const int64_t blocks = static_cast<int64_t>((sq + BQ - 1) / BQ) * b * h;
+  if (blocks > INT_MAX) return -1;
+  const Strides os{static_cast<int64_t>(sq) * h * D,
+                   static_cast<int64_t>(h) * D, D};
+  CUtensorMap mq, mk, mv, mo;
+  if (!tensor_map(&mq, q, D, sq, h, b, qs, BQ) ||
+      !tensor_map(&mk, k, D, sk, kvh, b, ks, BK) ||
+      !tensor_map(&mv, v, D, sk, kvh, b, vs, BK) ||
+      !tensor_map(&mo, o, D, sq, h, b, os, 64))
+    return -2;
+  // set on every launch: the limit belongs to the device that is current
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  flash_fwd_bf16<D><<<grid, NWARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, h, group, qs, ks, vs, causal, window, scale_log2);
+  flash_fwd_bf16<D><<<static_cast<int>(blocks), THREADS, T::SMEM, stream>>>(
+      mq, mk, mv, mo, sq, sk, h, h / kvh, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int h, int group, Strides qs, Strides ks,
+               int sq, int sk, int h, int kvh, Strides qs, Strides ks,
                Strides vs, int causal, int window, cudaStream_t stream) {
   const dim3 grid((sq + F32_ROWS - 1) / F32_ROWS, b * h);
   flash_fwd_f32<D><<<grid, F32_ROWS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, group,
-      qs, ks, vs, causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h,
+      h / kvh, qs, ks, vs, causal, window,
+      1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // o (B, Sq, H, D) contiguous; q, k, v by strides (elements).  dtype 0 is
-// bfloat16, 1 is float32.  Returns the cudaError of the launch, or -1 for a
-// head_dim, dtype or grid the kernel does not take.
+// bfloat16, 1 is float32.  Returns the cudaError of the launch, -1 for a
+// head_dim, dtype or grid the kernel does not take, or -2 when a bfloat16
+// tensor map cannot be built (the driver lacks cuTensorMapEncodeTiled or
+// refuses the strides).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int64_t b,
     int64_t sq, int64_t sk, int64_t h, int64_t kvh, int64_t d, int64_t qsb,
@@ -339,16 +737,16 @@ extern "C" int repro_flash_attention(
     return -1;
   if (b == 0 || sq == 0) return 0;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  const int group = static_cast<int>(h / kvh);
   const int w = window > 0 ? window : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ib = static_cast<int>(b), isq = static_cast<int>(sq),
-            isk = static_cast<int>(sk), ih = static_cast<int>(h);
-#define REPRO_FA_CASE(DIM)                                                   \
-  case DIM:                                                                  \
-    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, ib, isq, isk, ih, group, \
+            isk = static_cast<int>(sk), ih = static_cast<int>(h),
+            ikv = static_cast<int>(kvh);
+#define REPRO_FA_CASE(DIM)                                                    \
+  case DIM:                                                                   \
+    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, ib, isq, isk, ih, ikv,   \
                                          qs, ks, vs, causal, w, st)           \
-                      : launch_f32<DIM>(q, k, v, o, ib, isq, isk, ih, group,  \
+                      : launch_f32<DIM>(q, k, v, o, ib, isq, isk, ih, ikv,    \
                                         qs, ks, vs, causal, w, st);
   if (dtype != 0 && dtype != 1) return -1;
   switch (d) {
@@ -359,4 +757,10 @@ extern "C" int repro_flash_attention(
       return -1;
   }
 #undef REPRO_FA_CASE
+}
+
+// Dynamic shared memory of one bfloat16 block at head_dim d, or -1.
+extern "C" int repro_flash_attention_smem(int64_t d) {
+  return d == 64 ? Tiles<64>::SMEM : d == 128 ? Tiles<128>::SMEM
+       : d == 256 ? Tiles<256>::SMEM : -1;
 }

@@ -6,7 +6,9 @@ the plain version in ``ref.py``; a CUDA tensor launches
 ``flash_attention.cu`` on the current stream (built at first use) or
 raises.  The kernel reads q/k/v through their strides, so the caller's
 (B, S, heads, D) tensors are used as they are and K/V are never repeated
-across a GQA group.  ``launches`` counts the kernel launches.
+across a GQA group; in bfloat16 it reads them through TMA tensor maps,
+which the launcher builds from the same pointers and strides at each
+call.  ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -31,6 +33,13 @@ def _lib():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one bfloat16 block at head_dim ``d``."""
+    fn = build.load("flash_attention").repro_flash_attention_smem
+    fn.argtypes, fn.restype = [ctypes.c_int64], ctypes.c_int
+    return fn(d)
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:

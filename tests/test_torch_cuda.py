@@ -221,6 +221,16 @@ FA_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
     (1, 130, 77, 4, 2, 128, False, 40, torch.bfloat16),
     (1, 65, 65, 2, 1, 64, True, 16, torch.float32),
     (2, 40, 90, 4, 4, 256, False, 0, torch.float32),
+    # the Hopper kernel's tiling: 128 query rows, 64 keys a stage
+    (1, 130, 200, 4, 2, 128, False, 0, torch.bfloat16),   # Sq != Sk, ragged
+    (2, 200, 130, 4, 4, 64, True, 0, torch.bfloat16),     # causal, Sq > Sk
+    (2, 100, 100, 4, 1, 256, True, 0, torch.bfloat16),    # causal, Sq < BQ
+    (1, 300, 300, 4, 2, 128, True, 40, torch.bfloat16),   # window < a tile
+    (1, 700, 700, 2, 1, 64, True, 200, torch.bfloat16),   # window > BQ
+    (1, 257, 257, 4, 4, 256, True, 0, torch.bfloat16),    # GQA group of 1
+    (4, 2048, 2048, 4, 1, 256, True, 0, torch.bfloat16),  # gemma3-1b global
+    (1, 1000, 100, 2, 1, 128, True, 64, torch.bfloat16),  # row 163 on: no key
+    (2, 77, 40, 4, 2, 64, False, 0, torch.bfloat16),      # Sk < one tile
 ]
 
 
@@ -244,6 +254,30 @@ def test_flash_attention_kernel_vs_plain(cuda, case):
     assert row <= row_tol, row
 
 
+@pytest.mark.parametrize("case", [(2, 333, 4, 1, 256, True, 0),
+                                  (1, 200, 8, 2, 128, True, 64),
+                                  (2, 150, 2, 2, 64, False, 0)])
+def test_flash_attention_kernel_reads_strided_views(cuda, case):
+    """q, k and v sliced from one (B, S, H + 2 KV, D) tensor, as a fused
+    QKV projection gives them: the kernel reads their real strides and
+    gives what it gives on contiguous copies, bit for bit."""
+    b, s, h, kv, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    qkv = torch.randn((b, s, h + 2 * kv, d), device=cuda,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    dense = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert (got.float() - want.float()).abs().max().item() <= 0.06
+    assert row_error(got, want) <= 0.1
+
+
 def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
     def qkv(d, dtype):
         return (torch.zeros((1, 8, 2, d), dtype=dtype, device=cuda),
@@ -259,6 +293,12 @@ def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
                           device=cuda)[..., ::2]
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, strided, v)
+    # rows 260 elements (520 bytes) apart: TMA needs multiples of 16 bytes
+    odd_rows = torch.zeros(8 * 260, dtype=torch.bfloat16,
+                           device=cuda).as_strided((1, 8, 2, 128),
+                                                   (8 * 260, 260, 128, 1))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(odd_rows, k, v)
     assert fa_ops.launches == before
 
 

@@ -244,3 +244,17 @@ def test_gather_rejects_bad_inputs():
         tddt_ops.gather(torch.zeros(4), torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError):
         tddt_ops.gather(torch.zeros(0), torch.zeros(3, dtype=torch.int32))
+
+
+def test_build_all_keeps_compiler_report_of_a_built_library(tmp_path,
+                                                           monkeypatch):
+    """A library that an earlier process built (no nvcc run now) still
+    yields its ptxas report, which chip_smoke.py checks."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "build_logs", {})
+    lib = build._lib_path("matcher")
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 32 registers")
+    build.build_all(["matcher"])
+    assert build.build_logs == {"matcher": "ptxas info    : Used 32 registers"}
