@@ -8,16 +8,23 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA; it imports nothing of JAX
 and nothing of the JAX package ``repro``.  Phases:
 
   1. the card's name and power limit; build every kernel from the
-     checkout's sources (one nvcc per source, all started together); K4
-     must be the warp-specialised Hopper kernel: its ptxas report shows
-     no spills and no ignored ``setmaxnreg`` (C7508), and its SASS
-     (``cuobjdump -sass``) holds HGMMA and UTMALDG instructions;
-  2. K1 (matcher) against its plain PyTorch version on the card, bit for
-     bit: built-in and random rule tables over wire-correct and random
-     frames, N = 64 and N = 65,536;
+     checkout's sources (one nvcc per source, all started together, and
+     an empty kernel for the launch floor); K1 and K2 must compile with
+     no stack frame (K1's register array stays in registers); K4 must be
+     the warp-specialised Hopper kernel: its ptxas report shows no spills
+     and no ignored ``setmaxnreg`` (C7508), and its SASS (``cuobjdump
+     -sass``) holds HGMMA and UTMALDG instructions;
+  2. K1 (matcher) against its plain PyTorch versions on the card, bit for
+     bit, in both forms, the fused first-match stage (with a fifth of the
+     lanes not valid) and the (N, C) form: built-in and random rule
+     tables (up to 8 contexts, word indices past the frame) over
+     wire-correct and random frames, N = 64 and N = 65,536;
   3. K2 (DDT gather) against its plain version on the card, bit for bit:
-     int32, float32 with -0.0 and NaN payloads, uint8; holes; sources up
-     to 4 MiB;
+     int32, float32 with -0.0 and NaN payloads, uint8, bfloat16, float64;
+     random maps and piecewise-contiguous ones (runs at aligned and
+     unaligned starts), holes, indices past the source, odd lengths,
+     sources and index maps one element off 16-byte alignment; sources
+     up to 4 MiB;
   3a. K3 (checksum) against its plain version, bit for bit: 64 ICMP echo
      frames and 65,536 random frames of random (odd and even) lengths
      with non-zero bytes past each length;
@@ -36,7 +43,7 @@ and nothing of the JAX package ``repro``.  Phases:
      one ICMP echo batch; K1 launches once per step;
   5. ``SpinIngest`` on the card (vocab 32000, batch 8, seq 4096: a
      ~128 KiB message of ~89 frames), tokens checked against the corpus,
-     K1 once and K2 twice per call; the Fig 10 overlap loops with a
+     K1 once and K2 once per call; the Fig 10 overlap loops with a
      float32 matmul sized to outlast the ingest (R is printed, and only
      checked to lie in [0, 1]);
   5a. the checksum path: ``internet_checksum_batch`` over 64 ICMP echo
@@ -59,10 +66,18 @@ and nothing of the JAX package ``repro``.  Phases:
      plain version's time and, as a yardstick, ``torch.take``'s time for
      K2 and ``scaled_dot_product_attention``'s for K4 (the port never
      calls either); K4's entry of the ``kernels`` line holds the global
-     layer's numbers and, as ``local_*``, the local layer's;
-  7. one NIC step, one serving prefill and one decode step under
-     torch.profiler: kernels per call, device busy time, the idle share it
-     implies and the kernels with the most device time.
+     layer's numbers and, as ``local_*``, the local layer's.  Beside
+     them: the launch floor (an empty kernel); the matching stage as
+     ``match_batch`` runs it (one launch) against the earlier stage (the
+     (N, C) kernel and seven PyTorch ops), device and host time, with K1's
+     bound counted in selected words and in 32-byte sectors; K2's vector
+     body against its scalar body (the earlier kernel), at the ingest's
+     one gather against its earlier two, on a Fig 9 complex map whose
+     message is about 4 MiB and on a 4 MiB permutation;
+  7. one ``match_batch`` (must be one kernel), the earlier matching stage,
+     one ``SpinIngest`` call, one NIC step, one serving prefill and one
+     decode step under torch.profiler: kernels per call, device busy time,
+     the idle share it implies and the kernels with the most device time.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -186,20 +201,115 @@ def rule_tables(seed):
     rules[..., 2] = rng.integers(0, 2**31, (6, 4))
     rules[..., 3] = rules[..., 2] + rng.integers(0, 2**31, (6, 4))
     yield "random", rules, rng.integers(0, 2, 6).astype(np.int32)
+    # 8 contexts, word indices up to W + 7 (clipped to W - 1), the
+    # built-in ICMP and SLMP contexts at 1 and 2
+    rules = np.zeros((8, 4, 4), np.uint32)
+    rules[..., 0] = rng.integers(0, pkt.WORDS + 8, (8, 4))
+    rules[..., 1] = rng.choice(np.array([0xFF, 0xFF00, 0xFFFF0000,
+                                         0xFFFFFFFF, 0], np.uint32), (8, 4))
+    rules[..., 2] = rng.integers(0, 2**31, (8, 4))
+    rules[..., 3] = rules[..., 2] + rng.integers(0, 2**31, (8, 4))
+    modes = rng.integers(0, 2, 8).astype(np.int32)
+    for k, r in ((1, rs[0]), (2, rs[3])):
+        rules[k], modes[k] = r.as_array(), r.mode
+    yield "random8", rules, modes
+
+
+def runs_map(s, i, rng):
+    """A piecewise-contiguous index map of length ``i`` into a source of
+    ``s`` elements, as a committed datatype gives: runs of 1-63
+    consecutive indices from random (aligned or unaligned) starts, some of
+    them holes (-1) or indices past the source; runs may cross S."""
+    import numpy as np
+    lens = rng.integers(1, 64, i // 16 + 2)
+    starts = rng.integers(0, s, len(lens))
+    kind = np.repeat(rng.random(len(lens)), lens)
+    offs = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)
+    idx = np.repeat(starts, lens) + offs
+    idx = np.where(kind < 0.05, -1, np.where(kind < 0.08, s + 5, idx))
+    return np.resize(idx, i).astype(np.int32)
+
+
+def offset_copy(t, offset):
+    """``t`` copied into a card buffer ``offset`` elements in: a view that
+    is not 16-byte aligned when ``offset`` is not a multiple of 16 bytes."""
+    import torch
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:]
+    view.copy_(t)
+    return view
+
+
+# An empty kernel, built beside the port's own, whose time in the timing
+# harness is the launch floor.
+EMPTY_CU = """
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int repro_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 # ------------------------------------------------------------------ phases
 def phase_build():
+    """Build every kernel and the empty one.  Returns the empty kernel's
+    launcher, ``fn(blocks, threads, stream)``."""
+    import ctypes
+    import re
+    import subprocess
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "empty_probe.cu"
+    src.write_text(EMPTY_CU)
+    lib = build.BUILD_DIR / "libempty_probe.so"
+    probe = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                              str(lib), str(src)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
     build.build_all()
+    out, _ = probe.communicate()
+    if probe.returncode:
+        raise AssertionError(f"nvcc failed for the empty kernel:\n{out}")
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"({len(build.SOURCES)} sources, parallel nvcc)")
+        f"({len(build.SOURCES)} sources and an empty kernel, parallel "
+        f"nvcc)")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "warning" in line:
                 log(f"[1]   {name}: {line.strip()}")
+    for name in ("matcher", "ddt"):
+        frames = [int(n) for n in re.findall(r"(\d+) bytes stack frame",
+                                             build.build_logs[name])]
+        if not frames or any(frames):
+            raise AssertionError(f"{name}: ptxas reports stack frames "
+                                 f"{frames} (arrays left registers)")
+        log(f"[1] {name}: SASS instructions per kernel "
+            f"{sass_sizes(build, name)}")
     check_k4_build(build)
+    empty = ctypes.CDLL(str(lib)).repro_empty
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return empty
+
+
+def sass_sizes(build, name):
+    """{kernel: SASS instruction count} of kernel library ``name``: at the
+    sizes K1-K3 run, a kernel's time grows with its code."""
+    import re
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        mangled = fn.split("\n", 1)[0].strip()
+        short = re.search(r"(\d+)([a-z_]+kernel)(I[^E]*E)?", mangled)
+        key = short.group(2) + (short.group(3) or "") if short else mangled
+        out[key] = len(re.findall(r"/\*[0-9a-f]{4}\*/", fn))
+    return out
 
 
 def check_k4_build(build):
@@ -243,6 +353,8 @@ def phase_k1(dev):
     import torch
     from repro_torch.kernels.matcher import ops, ref
     for n in (64, 65536):
+        valid = torch.as_tensor(np.random.default_rng(n).random(n) < 0.8,
+                                device=dev)
         for kind in ("wire", "random"):
             data = wire_frames(n, n) if kind == "wire" else \
                 np.random.default_rng(n).integers(0, 256, (n, 1536)
@@ -253,12 +365,22 @@ def phase_k1(dev):
                 m = torch.as_tensor(modes, device=dev)
                 got = ops.match(d, r, m)
                 want = ref.match_ref(d, r, m)
+                first = ops.match_first(d, r, m, valid)
+                want_first = ref.match_first_ref(d, r, m, valid)
                 torch.cuda.synchronize()
                 if not (torch.equal(got[0], want[0])
                         and torch.equal(got[1], want[1])):
                     raise AssertionError(f"K1 mismatch n={n} {kind} {tname}")
-                log(f"[2] K1 n={n} frames={kind} rules={tname}: bit-exact "
-                    f"(matched {int(got[0].sum())}, eom {int(got[1].sum())})")
+                if not (torch.equal(first[0], want_first[0])
+                        and torch.equal(first[1], want_first[1])):
+                    raise AssertionError(f"K1 first-match mismatch n={n} "
+                                         f"{kind} {tname}")
+                won = torch.bincount(first[0] + 1, minlength=r.shape[0] + 1)
+                log(f"[2] K1 n={n} frames={kind} rules={tname} "
+                    f"(C={r.shape[0]}): (N, C) form and first-match form "
+                    f"bit-exact (matched {int(got[0].sum())}, eom "
+                    f"{int(got[1].sum())}; lanes per winner, none first: "
+                    f"{won.tolist()}, eom {int(first[1].sum())})")
 
 
 def phase_k2(dev):
@@ -266,31 +388,59 @@ def phase_k2(dev):
     import torch
     from repro_torch.kernels.ddt import ops, ref
     rng = np.random.default_rng(7)
-    cases = [("int32", 1 << 20, 1 << 20), ("float32", 1 << 20, 3 << 19),
-             ("uint8", 1 << 22, 1 << 21), ("float32", 1000, 77777),
-             ("int32", 1, 10)]
-    for dtype, s, i in cases:
-        if dtype == "float32":
-            src = rng.normal(size=s).astype(np.float32)
+    cases = [  # dtype, S, I, map, src offset, idx offset (elements)
+        ("int32", 1 << 20, 1 << 20, "random", 0, 0),
+        ("float32", 1 << 20, 3 << 19, "random", 0, 0),
+        ("uint8", 1 << 22, 1 << 21, "random", 0, 0),
+        ("float32", 1000, 77777, "random", 0, 0),
+        ("int32", 1, 10, "random", 0, 0),
+        ("int32", 1 << 20, (1 << 20) + 3, "runs", 0, 0),    # odd I
+        ("float32", 1 << 20, 777777, "runs", 1, 0),         # src unaligned
+        ("float32", 1 << 20, 777777, "runs", 0, 1),         # idx unaligned
+        ("uint8", 1 << 22, (1 << 21) + 5, "runs", 0, 0),
+        ("uint8", 1 << 22, 99999, "runs", 3, 3),
+        ("bfloat16", 1 << 20, 123457, "runs", 0, 0),
+        ("float64", 1 << 19, 99999, "runs", 0, 0),
+        ("float64", 1 << 19, 99999, "random", 1, 2),
+        ("int32", 4099, 4099, "identity", 0, 0),            # one long run
+    ]
+    for dtype, s, i, kind, so, io in cases:
+        if dtype in ("float32", "float64", "bfloat16"):
+            npt = np.float64 if dtype == "float64" else np.float32
+            src = torch.as_tensor(rng.normal(size=s).astype(npt)).to(
+                getattr(torch, dtype))
             src[::5] = -0.0
-            src.view(np.uint32)[1::7] = 0x7FC01234          # NaN payloads
+            src[1::7] = float("nan")
+            if dtype == "float32":                  # NaN payloads
+                src.view(torch.int32)[1::7] = 0x7FC01234
             fill = -0.0
         elif dtype == "int32":
-            src = rng.integers(-2**31, 2**31, s).astype(np.int32)
+            src = torch.as_tensor(rng.integers(-2**31, 2**31, s).astype(
+                np.int32))
             fill = -7
         else:
-            src = rng.integers(0, 256, s).astype(np.uint8)
+            src = torch.as_tensor(rng.integers(0, 256, s).astype(np.uint8))
             fill = 0xAB
-        idx = rng.integers(-1, s + s // 50 + 2, i).astype(np.int32)
-        ts = torch.as_tensor(src, device=dev)
-        ti = torch.as_tensor(idx, device=dev)
+        if kind == "random":
+            idx = rng.integers(-1, s + s // 50 + 2, i).astype(np.int32)
+        elif kind == "runs":
+            idx = runs_map(s, i, rng)
+        else:
+            idx = np.arange(i, dtype=np.int32)
+        ts = offset_copy(src.to(dev), so)
+        ti = offset_copy(torch.as_tensor(idx, device=dev), io)
         got = ops.gather(ts, ti, fill=fill)
         want = ref.ddt_gather_ref(ts, ti, fill)
         torch.cuda.synchronize()
         if not torch.equal(bits(got), bits(want)):
-            raise AssertionError(f"K2 mismatch {dtype} S={s} I={i}")
-        log(f"[3] K2 {dtype} S={s} ({src.nbytes} B) I={i}: bit-exact "
-            f"(holes {int((idx < 0).sum())}, idx>=S {int((idx >= s).sum())})")
+            raise AssertionError(f"K2 mismatch {dtype} S={s} I={i} {kind} "
+                                 f"offsets {so}, {io}")
+        body = "vector" if (ti.data_ptr() | got.data_ptr()) % 16 == 0 \
+            else "scalar"
+        log(f"[3] K2 {dtype} S={s} ({s * src.element_size()} B) I={i} "
+            f"{kind} map, src/idx {so}/{io} elements off ({body} body): "
+            f"bit-exact (holes {int((idx < 0).sum())}, idx>=S "
+            f"{int((idx >= s).sum())})")
 
 
 def phase_k3(dev):
@@ -580,12 +730,12 @@ def phase_ingest(dev):
                 and np.array_equal(out["targets"].cpu().numpy(),
                                    want[:, 1:])):
             raise AssertionError(f"SpinIngest tokens wrong at step {i}")
-    if (k1.launches - m0, k2.launches - g0) != (3, 6):
+    if (k1.launches - m0, k2.launches - g0) != (3, 3):
         raise AssertionError(f"SpinIngest launches K1={k1.launches - m0} "
                              f"K2={k2.launches - g0} for 3 calls")
     log(f"[5] SpinIngest: message {pipe.msg_bytes} B in {pipe.n_packets} "
         f"frames -> tokens (8, 4096) == corpus; launches per call: K1 1, "
-        f"K2 2")
+        f"K2 1")
 
     # size the compute to outlast the ingest (bench_ddt.py's method)
     t_ing = []
@@ -751,43 +901,134 @@ def phase_serve(dev):
     return captured, errs, launched, (engine, batch)
 
 
-def phase_kernels(dev, launches, spin, reqs, captured, k4_errs):
-    """Time K1-K4 at their paths' shapes.  Returns the entries of the
-    ``kernels`` line."""
+def match_batch_earlier(batch, tables):
+    """The matching stage as it ran before the first-match form: the
+    (N, C) kernel, then seven PyTorch ops (mask by valid, any, cast,
+    argmax, where, gather, and), each its own launch."""
+    import torch
+    from repro_torch.kernels.matcher import ops as k1
+    matched, eom = k1.match(batch.data, tables.rules, tables.modes)
+    matched = matched & batch.valid[:, None]
+    any_match = matched.any(dim=1)
+    first = matched.to(torch.uint8).argmax(dim=1)
+    ctx_id = torch.where(any_match, first.to(torch.int32), -1)
+    eom_hit = eom.gather(1, first[:, None])[:, 0]
+    return ctx_id, any_match & eom_hit
+
+
+def k2_bytes(idx, s, esize=4):
+    """Bytes a gather by ``idx`` from ``s`` elements must move: each index
+    read, each output written, each source element it references read
+    once."""
+    import torch
+    used = torch.unique(idx[idx >= 0].clamp(max=s - 1)).numel()
+    return idx.numel() * (4 + esize) + used * esize
+
+
+def time_k2(tag, src, idx):
+    """K2 by ``idx`` on the card: the vector body, the scalar body (the
+    same map off 16-byte alignment), the plain version and torch.take,
+    with the bound.  Checks the bodies against the plain version first.
+    Returns (vector ms, plain ms, torch.take ms, bound ms, scalar ms)."""
+    import torch
+    from repro_torch.kernels.ddt import ops as k2, ref as k2ref
+    off = offset_copy(idx, 1)
+    want = k2ref.ddt_gather_ref(src, idx)
+    for body, i in (("vector", idx), ("scalar", off)):
+        if not torch.equal(bits(k2.gather(src, i)), bits(want)):
+            raise AssertionError(f"K2 {body} body mismatch at {tag}")
+    safe = idx.clamp(0, src.numel() - 1).to(torch.int64)  # take wants int64
+    ms, host = time_ms(lambda: k2.gather(src, idx))
+    scalar, _ = time_ms(lambda: k2.gather(src, off))
+    plain, phost = time_ms(lambda: k2ref.ddt_gather_ref(src, idx))
+    lib, _ = time_ms(lambda: torch.take(src, safe))
+    nbytes = k2_bytes(idx, src.numel(), src.element_size())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[6] K2 {tag} S={src.numel()} I={idx.numel()}: vector body "
+        f"{ms * 1e3:.3f} us (wrapper issues a call in {host * 1e3:.2f} us), "
+        f"scalar body {scalar * 1e3:.3f} us, plain {plain * 1e3:.3f} us "
+        f"(issued in {phost * 1e3:.2f} us), torch.take {lib * 1e3:.3f} us, "
+        f"bound {bound * 1e3:.3f} us ({nbytes} B; vector body at "
+        f"{bound / ms * 100:.1f} % of it)")
+    return ms, plain, lib, bound, scalar
+
+
+def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
+    """Time the launch floor and K1-K4 at their paths' shapes.  Returns
+    the entries of the ``kernels`` line."""
     import numpy as np
     import torch
-    from repro_torch.core import matching, packet as pkt
+    from repro_torch.core import ddt, matching, packet as pkt
     from repro_torch.kernels.ddt import ops as k2, ref as k2ref
     from repro_torch.kernels.matcher import ops as k1, ref as k1ref
     out = []
 
-    # K1 at the main path's shape (a batch of 64 frames, the Fig 10 NIC's
-    # single context), and at 65,536 frames of three contexts
+    # the launch floor: an empty kernel through ctypes, as the port's are
+    for blocks, threads in ((1, 32), (512, 128)):
+        def call():
+            if empty(blocks, threads, torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("empty kernel: launch failed")
+        ms, host = time_ms(call)
+        log(f"[6] launch floor: an empty kernel of {blocks} x {threads} "
+            f"threads takes {ms * 1e3:.3f} us on the device (issued in "
+            f"{host * 1e3:.2f} us)")
+
+    # K1: the matching stage at the main path's shape (a batch of 64
+    # frames, the Fig 10 NIC's single context) and at 65,536 frames of
+    # three contexts; match_batch (one launch) against the earlier stage.
+    # Bytes: the table, the modes, valid, ctx_id and eom, and per frame the
+    # distinct selected words (4 B each) or the 32-byte sectors they lie in.
     for n, ctxs in ((NIC_BATCH, [matching.ruleset_slmp(9331)]),
                     (65536, [matching.ruleset_icmp_echo(),
                              matching.ruleset_udp_pingpong(),
                              matching.ruleset_slmp(9330)])):
         tables = matching.MatchTables.build(ctxs, device=dev)
         d = torch.as_tensor(wire_frames(n, n + 1), device=dev)
+        batch = pkt.PacketBatch(
+            d, torch.full((n,), pkt.MTU, dtype=torch.int32, device=dev),
+            torch.ones((n,), dtype=torch.bool, device=dev))
         nctx = tables.n_ctx
-        words = torch.unique(torch.clamp(
-            tables.rules[:, :, 0], 0, pkt.WORDS - 1)).numel()
-        nbytes = n * words * 4 + tables.rules.numel() * 8 + nctx * 4 \
-            + 2 * n * nctx
+        idx = torch.clamp(tables.rules[:, :, 0], 0, pkt.WORDS - 1)
+        words = torch.unique(idx).numel()
+        sectors = torch.unique(idx // 8).numel()
+        fixed = tables.rules.numel() * 8 + nctx * 4 + n * (1 + 4 + 1)
+        nbytes = n * words * 4 + fixed
+        sbytes = n * sectors * 32 + fixed
         n_ops = n * nctx * 4 * 4         # per rule: mask, 2 compares, combine
-        got = k1.match(d, tables.rules, tables.modes)
-        want = k1ref.match_ref(d, tables.rules, tables.modes)
-        err = max(int((got[i] != want[i]).sum()) for i in (0, 1))
+        got = matching.match_batch(batch, tables)
+        old = match_batch_earlier(batch, tables)
+        want = k1ref.match_first_ref(d, tables.rules, tables.modes,
+                                     batch.valid)
+        err = sum(int((g[i] != want[i]).sum()) for g in (got, old)
+                  for i in (0, 1))
         if err:
             raise AssertionError("K1 mismatch at the timed shape")
-        ms, host = time_ms(lambda: k1.match(d, tables.rules, tables.modes))
-        plain, phost = time_ms(lambda: k1ref.match_ref(d, tables.rules,
-                                                       tables.modes))
+        # in turns: the stage, the earlier stage twice, the stage again
+        ms, host = time_ms(lambda: matching.match_batch(batch, tables))
+        old_ms, old_host = time_ms(lambda: match_batch_earlier(batch,
+                                                               tables))
+        old_ms2, old_host2 = time_ms(lambda: match_batch_earlier(batch,
+                                                                 tables))
+        ms2, host2 = time_ms(lambda: matching.match_batch(batch, tables))
+        nc_ms, nc_host = time_ms(lambda: k1.match(d, tables.rules,
+                                                  tables.modes))
+        plain, phost = time_ms(lambda: k1ref.match_first_ref(
+            d, tables.rules, tables.modes, batch.valid))
         bound = max(nbytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
-        log(f"[6] K1 N={n} C={nctx}: device {ms * 1e3:.3f} us (wrapper "
-            f"issues a call in {host * 1e3:.2f} us), plain device "
-            f"{plain * 1e3:.3f} us (issued in {phost * 1e3:.2f} us), bound "
-            f"{bound * 1e6:.2f} ns ({nbytes} B, {n_ops} int ops)")
+        sbound = max(sbytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+        log(f"[6] K1 N={n} C={nctx}: match_batch (first-match kernel) "
+            f"device {ms * 1e3:.3f} / {ms2 * 1e3:.3f} us, issued in "
+            f"{host * 1e3:.2f} / {host2 * 1e3:.2f} us; earlier stage ((N, "
+            f"C) kernel + 7 ops) device {old_ms * 1e3:.3f} / "
+            f"{old_ms2 * 1e3:.3f} us, issued in {old_host * 1e3:.2f} / "
+            f"{old_host2 * 1e3:.2f} us (in turns: new, earlier, earlier, "
+            f"new); "
+            f"(N, C) kernel alone {nc_ms * 1e3:.3f} us (issued in "
+            f"{nc_host * 1e3:.2f} us); plain {plain * 1e3:.3f} us (issued "
+            f"in {phost * 1e3:.2f} us); bound {bound * 1e6:.2f} ns by words "
+            f"({nbytes} B, {words} words a frame), {sbound * 1e6:.2f} ns by "
+            f"sectors ({sbytes} B, {sectors} sectors a frame), {n_ops} int "
+            f"ops")
         if n == NIC_BATCH:
             out.append(dict(
                 name="match", route="cuda",
@@ -795,52 +1036,62 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs):
                 replaces="src/repro/kernels/matcher/matcher.py:62",
                 launches=launches["match"], max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                library_ms=None))
+                library_ms=None, sector_bound_ms=sbound,
+                earlier_stage_ms=old_ms, host_ms=host,
+                earlier_stage_host_ms=old_host))
 
-    # K2 at the main path's shapes: SpinIngest's unpack gather (message
-    # elements -> application buffer) and token gather (buffer -> tokens)
+    # K2 at the ingest's shape: the one gather by the composed map (message
+    # elements -> tokens) against the earlier two (message -> application
+    # buffer -> tokens) with the scalar body, as they ran before
     rng = np.random.default_rng(11)
-    entry = None
-    for name, idx in (("unpack", spin.unpack_idx), ("tokens", spin.pack_idx)):
-        s = (spin.pl.msg_bytes // 4 if name == "unpack"
-             else spin.pl.mem_elems)
-        src = torch.as_tensor(rng.integers(-2**31, 2**31, s).astype(
-            np.int32), device=dev)
-        got = k2.gather(src, idx)
-        want = k2ref.ddt_gather_ref(src, idx)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if err:
-            raise AssertionError("K2 mismatch at the timed shape")
-        used = torch.unique(idx[idx >= 0].clamp(max=s - 1)).numel()
-        nbytes = idx.numel() * 4 * 2 + used * 4
-        safe = idx.clamp(0, s - 1).to(torch.int64)     # take wants int64
-        ms, host = time_ms(lambda: k2.gather(src, idx))
-        plain, phost = time_ms(lambda: k2ref.ddt_gather_ref(src, idx))
-        lib, _ = time_ms(lambda: torch.take(src, safe))
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[6] K2 {name} S={s} I={idx.numel()}: device "
-            f"{ms * 1e3:.3f} us (wrapper issues a call in "
-            f"{host * 1e3:.2f} us), plain device {plain * 1e3:.3f} us "
-            f"(issued in {phost * 1e3:.2f} us), torch.take "
-            f"{lib * 1e3:.3f} us, bound {bound * 1e6:.2f} ns ({nbytes} B)")
-        if entry is None:
-            entry = dict(
-                name="ddt_gather", route="cuda",
-                source="src/repro_torch/kernels/ddt/ddt_gather.cu",
-                replaces="src/repro/kernels/ddt/ddt.py:71",
-                launches=launches["ddt_gather"], max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                library_ms=lib)
-    out.append(entry)
-    # K2 on a 4 MiB int32 permutation, for the record
-    src = torch.arange(1 << 20, dtype=torch.int32, device=dev)
-    idx = torch.randperm(1 << 20, device=dev).to(torch.int32)
-    ms, _ = time_ms(lambda: k2.gather(src, idx))
-    idx64 = idx.to(torch.int64)
-    lib, _ = time_ms(lambda: torch.take(src, idx64))
-    bound = (3 * 4 << 20) / HBM_BYTES_PER_S * 1e3
-    log(f"[6] K2 permutation S=I=1048576 int32: device {ms * 1e3:.3f} us, "
-        f"torch.take {lib * 1e3:.3f} us, bound {bound * 1e3:.3f} us")
+    pl = spin.pl
+    msg = torch.as_tensor(rng.integers(-2**31, 2**31, pl.msg_bytes // 4)
+                          .astype(np.int32), device=dev)
+    n_tok = pl.batch * (pl.seq + 1)
+    unpack = offset_copy(torch.as_tensor(pl.unpack_idx, device=dev), 1)
+    pack = offset_copy(torch.as_tensor(pl.pack_idx, device=dev), 1)
+
+    def two_gathers():
+        return k2.gather(k2.gather(msg, unpack), pack)[:n_tok]
+
+    if not torch.equal(two_gathers(), k2.gather(msg, spin.tok_idx)):
+        raise AssertionError("K2: one gather != the earlier two")
+    # in turns: one gather, the earlier two twice, one gather again
+    ms, plain, lib, bound, scalar = time_k2("ingest, one gather",
+                                            msg, spin.tok_idx)
+    old_ms, old_host = time_ms(two_gathers)
+    old_ms2, old_host2 = time_ms(two_gathers)
+    ms2, host2 = time_ms(lambda: k2.gather(msg, spin.tok_idx))
+    old_bound = (k2_bytes(unpack, msg.numel())
+                 + k2_bytes(pack, unpack.numel())) / HBM_BYTES_PER_S * 1e3
+    log(f"[6] K2 ingest, earlier two gathers (scalar body, the application "
+        f"buffer between them): device {old_ms * 1e3:.3f} / "
+        f"{old_ms2 * 1e3:.3f} us, issued in {old_host * 1e3:.2f} / "
+        f"{old_host2 * 1e3:.2f} us, their bound {old_bound * 1e3:.3f} us; "
+        f"one gather again {ms2 * 1e3:.3f} us (issued in "
+        f"{host2 * 1e3:.2f} us)")
+    out.append(dict(
+        name="ddt_gather", route="cuda",
+        source="src/repro_torch/kernels/ddt/ddt_gather.cu",
+        replaces="src/repro/kernels/ddt/ddt.py:71",
+        launches=launches["ddt_gather"], max_abs_err=0, ms=ms,
+        plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=lib,
+        scalar_body_ms=scalar, earlier_two_gathers_ms=old_ms))
+    # a Fig 9 complex datatype at count 32,768 (a message of about 4 MiB),
+    # pack and unpack maps, and a 4 MiB int32 permutation
+    c = ddt.commit(ddt.complex_ddt(), count=32768)
+    p_idx, u_idx = ddt.element_maps(c, 4)
+    mem = torch.as_tensor(rng.integers(-2**31, 2**31, c.mem_bytes // 4)
+                          .astype(np.int32), device=dev)
+    msg4 = torch.as_tensor(rng.integers(-2**31, 2**31, c.msg_bytes // 4)
+                           .astype(np.int32), device=dev)
+    time_k2(f"Fig 9 complex x 32768 pack ({c.msg_bytes} B message)", mem,
+            torch.as_tensor(p_idx, device=dev))
+    time_k2(f"Fig 9 complex x 32768 unpack ({c.mem_bytes} B buffer)", msg4,
+            torch.as_tensor(u_idx, device=dev))
+    time_k2("permutation int32", torch.arange(1 << 20, dtype=torch.int32,
+                                              device=dev),
+            torch.randperm(1 << 20, device=dev).to(torch.int32))
 
     # K3 at the checksum path's shape (64 ICMP echo requests), and at
     # 65,536 random frames for the record.  Bytes: the live words, the
@@ -950,12 +1201,13 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as k4
     from repro_torch.kernels.matcher import ops as k1
     from repro_torch import card_line, configs
+    from repro_torch.core import matching
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
     card = card_line()
     log(f"[1] card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
-    phase_build()
+    empty = phase_build()
     phase_k1(dev)
     phase_k2(dev)
     phase_k3(dev)
@@ -967,8 +1219,8 @@ def main() -> int:
     launches = {"match": k1.launches, "ddt_gather": k2.launches}
     log(f"[5] main-path launches: K1 {launches['match']} (= {steps} NIC "
         f"steps + {calls} ingest calls), K2 {launches['ddt_gather']} "
-        f"(= 2 x {calls} ingest calls)")
-    if launches != {"match": steps + calls, "ddt_gather": 2 * calls}:
+        f"(= {calls} ingest calls)")
+    if launches != {"match": steps + calls, "ddt_gather": calls}:
         raise AssertionError(f"main path launches {launches}")
     # the checksum path and the serving path, each counted on its own
     k3.launches = 0
@@ -983,16 +1235,25 @@ def main() -> int:
     if (launches["checksum"], launches["flash_attention"]) != (
             ck_calls, 2 * n_layers):
         raise AssertionError(f"path launches {launches}")
-    kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs)
-    # last, because the profiler's tracing may slow later launches: one
-    # Fig 10 step (the complex stream's first batch, replayed) profiled
+    kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
+                            empty)
+    # last, because the profiler's tracing may slow later launches: the
+    # matching stage in both forms, one ingest call, one Fig 10 step (the
+    # complex stream's first batch, replayed), a prefill and a decode step
     nic, st, batch = replay
     engine, prompt = serve
     state = engine.prefill(prompt)
-    for what, fn in (("NIC step", lambda: nic.step(st, batch)),
+    for what, fn in (("match_batch", lambda: matching.match_batch(
+                          batch, nic.tables)),
+                     ("earlier matching stage", lambda: match_batch_earlier(
+                         batch, nic.tables)),
+                     ("SpinIngest call", lambda: spin(raw)),
+                     ("NIC step", lambda: nic.step(st, batch)),
                      ("serving prefill", lambda: engine.prefill(prompt)),
                      ("serving decode step", lambda: engine.step(state))):
         n_k, busy, wall, names, top = profile_step(fn)
+        if what == "match_batch" and n_k != 1:
+            raise AssertionError(f"match_batch ran {n_k} device kernels")
         log(f"[7] profiled {what}: {n_k} device kernels, device busy "
             f"{busy:.1f} us of {wall:.1f} us wall (idle share "
             f"{1 - busy / wall:.3f}, profiler on); commonest "

@@ -1,6 +1,7 @@
 """MPI Derived Datatypes and the dataloop engine (paper §V-C).
 
-A numpy copy of ``repro.core.ddt``: the port keeps its own.
+A numpy copy of ``repro.core.ddt``: the port keeps its own.  It adds
+``compose_maps``, which folds two gathers by index maps into one.
 
 Supports the constructors the paper uses — ``MPI_Type_contiguous``,
 ``MPI_Type_vector``, ``MPI_Type_hvector`` — arbitrarily nested, plus
@@ -28,6 +29,7 @@ import dataclasses
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 
 class DDT:
@@ -193,6 +195,20 @@ def element_maps(c: CommittedDDT, elem_bytes: int = 4):
     first = unpack[:, 0]
     unpack_idx = np.where(first >= 0, first // elem_bytes, -1).astype(np.int32)
     return pack_idx, unpack_idx
+
+
+def compose_maps(outer: torch.Tensor, inner: torch.Tensor, n_src: int
+                 ) -> torch.Tensor:
+    """The one index map that does two gathers, for a source of ``n_src``
+    elements and one fill value at both levels:
+    ``gather(src, m) == gather(gather(src, inner), outer)``, bit for bit,
+    under the gather's rules (a negative index yields the fill, an index
+    past the end reads the last element).  ``outer`` indexes the
+    ``len(inner)`` elements of the first gather's result.  Returns int32,
+    shaped as ``outer``, -1 where either level yields the fill."""
+    mid = inner[outer.to(torch.int64).clamp(0, inner.shape[0] - 1)]
+    m = torch.where(outer >= 0, mid.to(torch.int64), -1)
+    return torch.where(m >= 0, m.clamp(max=n_src - 1), -1).to(torch.int32)
 
 
 # ------------------------------------------------------- paper Fig 9 types

@@ -148,17 +148,12 @@ class MatchTables:
 
 
 def match_batch(batch: pkt.PacketBatch, tables: MatchTables):
-    """Run the matching engine (kernel K1 on CUDA) over a batch.
+    """Run the matching engine (kernel K1 on CUDA, one launch) over a batch.
 
     Returns ``(ctx_id, eom)``: ctx_id (N,) int32, -1 when no context matches
     (packet is forwarded to the Corundum/host datapath); eom (N,) bool, the
     EOM rule of the winning context.  Lowest-numbered matching context wins
     (priority order, as in hardware rule tables).
     """
-    matched, eom = matcher_ops.match(batch.data, tables.rules, tables.modes)
-    matched = matched & batch.valid[:, None]
-    any_match = matched.any(dim=1)
-    first = matched.to(torch.uint8).argmax(dim=1)
-    ctx_id = torch.where(any_match, first.to(torch.int32), -1)
-    eom_hit = eom.gather(1, first[:, None])[:, 0]
-    return ctx_id, any_match & eom_hit
+    return matcher_ops.match_first(batch.data, tables.rules, tables.modes,
+                                   batch.valid)

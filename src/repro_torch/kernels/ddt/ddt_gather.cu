@@ -13,24 +13,39 @@
 // dtype (-0.0 and NaN payloads included).  ``fill`` arrives as the bit
 // pattern of the fill value in the source dtype.
 //
-// Design.  One thread per output element: the reads of idx and the writes
-// of out are coalesced; the reads of src follow the index map and go
-// through L2 (a committed datatype's map is piecewise contiguous, so
-// neighbouring threads mostly hit neighbouring source elements).
-//
 // What bounds it on the H100.  Bytes moved: 4 bytes of index and one
 // element out per output, plus the source elements the map touches.  At
-// the main path's sizes (a 128 KiB message, about 33k elements) that is a
-// few hundred KB, under a microsecond at 3.35 TB/s, so one launch's
-// latency dominates; the design keeps the gather to one launch with no
-// padding or pre-pass.  At MiB sizes the kernel streams at a large share
-// of the memory rate because idx/out are coalesced and src reads of a
-// contiguous run share sectors.
+// the ingest's size (a 128 KiB message, about 33k elements) that is a few
+// hundred KB, about a tenth of a microsecond at 3.35 TB/s, so one launch's
+// latency dominates: the ingest composes its two maps (message -> buffer,
+// buffer -> tokens) into one at construction and runs one gather per call,
+// with no application buffer in device memory.  At MiB sizes it is bound by
+// the bytes, and the design cuts the number of memory requests.
+//
+// Design.  A committed datatype's map is piecewise contiguous, so the
+// vector body gives each thread a group of G = 16 / sizeof(T) consecutive
+// outputs (four int32s): its G indices in 16-byte loads (one for 4-byte
+// elements, four for 1-byte ones; one 8-byte load for 8-byte ones), one
+// 16-byte load from the source when the group's indices are one run j,
+// j+1, ... that lies inside the source and starts 16-byte aligned, else
+// one __ldg per element, and one 16-byte store.  Loads and stores of
+// neighbouring threads are neighbouring 16-byte pieces, so a warp moves
+// whole lines.
+// The last, ragged group is done element by element by its thread.  When
+// idx or out is not 16-byte aligned (a view at an offset), the scalar body
+// runs instead: one thread per output, 4-byte index loads, coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+template <typename T>
+__device__ __forceinline__ T gather_one(const T* __restrict__ src, int64_t s,
+                                        int32_t j, T fill) {
+  if (j < 0) return fill;
+  return __ldg(src + (j < s ? static_cast<int64_t>(j) : s - 1));
+}
 
 template <typename T>
 __global__ void gather_kernel(const T* __restrict__ src, int64_t s,
@@ -39,23 +54,68 @@ __global__ void gather_kernel(const T* __restrict__ src, int64_t s,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
-  const int32_t j = idx[i];
-  if (j < 0) {
-    out[i] = fill;
-  } else {
-    const int64_t k = j < s ? static_cast<int64_t>(j) : s - 1;
-    out[i] = __ldg(src + k);
+  out[i] = gather_one(src, s, idx[i], fill);
+}
+
+template <typename T>
+__global__ void gather_vec_kernel(const T* __restrict__ src, int64_t s,
+                                  const int32_t* __restrict__ idx, int64_t n,
+                                  T* __restrict__ out, T fill) {
+  constexpr int G = 16 / sizeof(T);          // outputs per thread
+  union Group { uint4 u; T v[G]; };
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x) * G;
+  if (i0 >= n) return;
+  if (i0 + G > n) {                          // the ragged tail
+    for (int64_t i = i0; i < n; ++i) out[i] = gather_one(src, s, idx[i], fill);
+    return;
   }
+  int32_t j[G];
+  if constexpr (G >= 4) {
+#pragma unroll
+    for (int q = 0; q < G / 4; ++q) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(idx + i0) + q);
+      j[4 * q] = t.x; j[4 * q + 1] = t.y; j[4 * q + 2] = t.z;
+      j[4 * q + 3] = t.w;
+    }
+  } else {
+    const int2 t = __ldg(reinterpret_cast<const int2*>(idx + i0));
+    j[0] = t.x; j[1] = t.y;
+  }
+  bool run = j[0] >= 0 && static_cast<int64_t>(j[0]) + G <= s &&
+             reinterpret_cast<uintptr_t>(src + j[0]) % 16 == 0;
+#pragma unroll
+  for (int k = 1; k < G; ++k)
+    run = run && static_cast<int64_t>(j[k]) == static_cast<int64_t>(j[0]) + k;
+  Group g;
+  if (run) {
+    g.u = __ldg(reinterpret_cast<const uint4*>(src + j[0]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < G; ++k) g.v[k] = gather_one(src, s, j[k], fill);
+  }
+  *reinterpret_cast<uint4*>(out + i0) = g.u;
 }
 
 template <typename T>
 int launch(const void* src, int64_t s, const void* idx, int64_t n, void* out,
            uint64_t fill_bits, cudaStream_t stream) {
   const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  gather_kernel<T><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(src), s, static_cast<const int32_t*>(idx), n,
-      static_cast<T*>(out), static_cast<T>(fill_bits));
+  const T* sp = static_cast<const T*>(src);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  T* op = static_cast<T*>(out);
+  const T fill = static_cast<T>(fill_bits);
+  if ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(out))
+      % 16 == 0) {
+    constexpr int64_t g = 16 / sizeof(T);
+    const int64_t groups = (n + g - 1) / g;
+    gather_vec_kernel<T><<<static_cast<unsigned>((groups + threads - 1) /
+                                                 threads),
+                           threads, 0, stream>>>(sp, s, ip, n, op, fill);
+  } else {
+    gather_kernel<T><<<static_cast<unsigned>((n + threads - 1) / threads),
+                       threads, 0, stream>>>(sp, s, ip, n, op, fill);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,7 @@ counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -25,13 +26,14 @@ from repro_torch.kernels.ddt import ref as _ref
 launches = 0
 
 
+@functools.cache
 def _lib():
+    """``repro_ddt_gather``, resolved and typed once."""
     fn = build.load("ddt").repro_ddt_gather
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_uint64, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_uint64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -56,23 +58,24 @@ def gather(src: torch.Tensor, idx: torch.Tensor, *, fill=0) -> torch.Tensor:
         raise ValueError("gather: src must be 1-D and idx 1-D int32")
     if src.shape[0] == 0:
         raise ValueError("gather: empty source")
-    if src.device != idx.device:
+    dev = src.device
+    if idx.device != dev:
         raise ValueError("gather: src and idx on different devices")
-    if src.device.type == "cpu":
+    if dev.type == "cpu":
         return _ref.ddt_gather_ref(src, idx, fill)
-    if src.device.type != "cuda":
-        raise ValueError(f"gather: unsupported device {src.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gather: unsupported device {dev}")
     if not (src.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather: src and idx must be contiguous")
     esize = src.element_size()
     if esize not in _BITS:
         raise ValueError(f"gather: element size {esize} not supported")
-    out = torch.empty(idx.shape, dtype=src.dtype, device=src.device)
+    out = torch.empty(idx.shape, dtype=src.dtype, device=dev)
     if idx.shape[0] == 0:
         return out
     err = _lib()(src.data_ptr(), src.shape[0], idx.data_ptr(), idx.shape[0],
                  out.data_ptr(), esize, fill_bits(fill, src.dtype),
-                 torch.cuda.current_stream(src.device).cuda_stream)
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"gather: CUDA launch failed (error {err})")
     launches += 1

@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the matching-engine kernel (K1).
+"""Plain PyTorch versions of the matching-engine kernel (K1).
 
 The CPU path, and the oracle that ``chip_smoke.py`` holds the CUDA kernel
-against.  Computes what ``repro.kernels.matcher.ref.match_ref`` computes,
-reading the frames' bytes instead of a precomputed word view.
+against.  ``match_ref`` computes what ``repro.kernels.matcher.ref.match_ref``
+computes, reading the frames' bytes instead of a precomputed word view;
+``match_first_ref`` adds the epilogue of ``repro.core.matching.match_batch``.
 """
 from __future__ import annotations
 
@@ -31,3 +32,18 @@ def match_ref(data: torch.Tensor, rules: torch.Tensor, modes: torch.Tensor):
     or_mode = ok[..., 0] | ok[..., 1] | ok[..., 2]
     matched = torch.where(modes[None, :] == 0, and_mode, or_mode)
     return matched, ok[..., 3]
+
+
+def match_first_ref(data: torch.Tensor, rules: torch.Tensor,
+                    modes: torch.Tensor, valid: torch.Tensor):
+    """``match_ref`` followed by the first-match priority encoder: returns
+    (ctx_id, eom), ctx_id (N,) int32 the lowest-numbered context that
+    matches a valid lane (-1 when none does), eom (N,) bool that context's
+    EOM rule (False when none matches)."""
+    matched, eom = match_ref(data, rules, modes)
+    matched = matched & valid[:, None]
+    any_match = matched.any(dim=1)
+    first = matched.to(torch.uint8).argmax(dim=1)
+    ctx_id = torch.where(any_match, first.to(torch.int32), -1)
+    eom_hit = eom.gather(1, first[:, None])[:, 0]
+    return ctx_id, any_match & eom_hit

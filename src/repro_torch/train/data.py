@@ -9,8 +9,9 @@ whose payloads are MPI-DDT-packed tensors**.  The pipeline has two halves:
   "application buffer" described by an MPI datatype, packs it, segments it
   into SLMP frames, and hands raw packet arrays to the device;
 * device half (``SpinIngest``): match (kernel K1), SLMP offset parsing and
-  reassembly, the committed-DDT unpack gather and the token gather (kernel
-  K2 twice), double-buffered against the train step (core/overlap.py).
+  reassembly, and one gather (kernel K2) from the message to the tokens by
+  the committed-DDT unpack map composed with the token map,
+  double-buffered against the train step (core/overlap.py).
 """
 from __future__ import annotations
 
@@ -124,7 +125,11 @@ class SpinIngest:
     This is the sPIN offload: U32 match (SLMP ruleset, kernel K1),
     per-packet offset parse, payload scatter into the message buffer (SLMP
     reassembly; a repeated message offset takes the last packet's byte),
-    then the committed-DDT unpack gather and the token gather (kernel K2).
+    then one gather (kernel K2) of the tokens out of the message.  The JAX
+    package gathers twice, the committed-DDT unpack into the application
+    buffer and the tokens back out of it; both maps are fixed, so
+    ``tok_idx`` composes them once, cut to the tokens returned, and the
+    buffer is never built.
     """
 
     def __init__(self, pipeline: PacketizedPipeline, device="cuda"):
@@ -132,10 +137,11 @@ class SpinIngest:
         self.device = resolve_device(device)
         self.tables = matching.MatchTables.build(
             [matching.ruleset_slmp(pipeline.port)], device=self.device)
-        self.unpack_idx = torch.as_tensor(pipeline.unpack_idx,
-                                          device=self.device)
-        self.pack_idx = torch.as_tensor(pipeline.pack_idx,
-                                        device=self.device)
+        n_tok = pipeline.batch * (pipeline.seq + 1)
+        self.tok_idx = ddtlib.compose_maps(
+            torch.as_tensor(pipeline.pack_idx[:n_tok]),
+            torch.as_tensor(pipeline.unpack_idx),
+            pipeline.msg_bytes // 4).to(self.device)
 
     def ingest(self, batch: pkt.PacketBatch) -> Dict[str, torch.Tensor]:
         pl = self.pl
@@ -152,13 +158,9 @@ class SpinIngest:
         msg = torch.zeros((pl.msg_bytes,), dtype=torch.uint8,
                           device=data.device)
         scatter_set_(msg, dst, data)
-        # receiver-side app buffer = DDT unpack of the message
-        msg_elems = msg.view(torch.int32)
-        mem = ddt_ops.gather(msg_elems, self.unpack_idx)
-        # tokens live at the DDT's mapped offsets: gather them back out
-        toks = ddt_ops.gather(mem, self.pack_idx)
-        b, s1 = pl.batch, pl.seq + 1
-        toks = toks[: b * s1].reshape(b, s1)
+        # DDT unpack into the app buffer and the token gather, as one
+        toks = ddt_ops.gather(msg.view(torch.int32), self.tok_idx)
+        toks = toks.reshape(pl.batch, pl.seq + 1)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
     def __call__(self, raw: PacketizedBatch) -> Dict[str, torch.Tensor]:

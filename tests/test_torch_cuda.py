@@ -1,6 +1,6 @@
-"""The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher), K2
-(DDT gather), K3 (checksum) and K4 (flash attention) against their plain
-versions, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
+"""The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher, both
+forms), K2 (DDT gather, both bodies), K3 (checksum) and K4 (flash
+attention) against their plain versions, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
 on the CPU, and the serving path's kernel launches.  Tolerance: exact (0)
 for K1-K3; K2 compares bit patterns.  K4 holds two limits at once: the
 max abs error (bfloat16 0.06, the tolerance the JAX package holds its own
@@ -31,7 +31,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref, row_error)
 from repro_torch.kernels.matcher import ops as match_ops  # noqa: E402
-from repro_torch.kernels.matcher.ref import match_ref  # noqa: E402
+from repro_torch.kernels.matcher.ref import (  # noqa: E402
+    match_first_ref, match_ref)
 from repro_torch.train import data as tdata  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +91,88 @@ def test_match_kernel_equals_plain(cuda, n):
                                                                 want[1])
 
 
+def _random_table(c, seed):
+    """C contexts of random rules (idx up to W + 7, both modes), with the
+    built-in ICMP and SLMP contexts at 1 and 2 where C > 2."""
+    rng = np.random.default_rng(seed)
+    rules = np.zeros((c, 4, 4), np.uint32)
+    rules[..., 0] = rng.integers(0, pkt.WORDS + 8, (c, 4))
+    rules[..., 1] = rng.choice(np.array([0xFF, 0xFF00, 0xFFFF0000,
+                                         0xFFFFFFFF, 0], np.uint32), (c, 4))
+    rules[..., 2] = rng.integers(0, 2**31, (c, 4))
+    rules[..., 3] = rules[..., 2] + rng.integers(0, 2**31, (c, 4))
+    modes = rng.integers(0, 2, c).astype(np.int32)
+    if c > 2:
+        for k, rs in ((1, matching.ruleset_icmp_echo()),
+                      (2, matching.ruleset_slmp(9330))):
+            rules[k], modes[k] = rs.as_array(), rs.mode
+    return rules, modes
+
+
+@pytest.mark.parametrize("n", [64, 65536])
+def test_match_first_kernel_equals_plain(cuda, n):
+    """The fused K1 against match_ref and the first-match epilogue, bit for
+    bit: wire and random frames, the built-in tables and random ones of 1,
+    3 and 8 contexts, a fifth of the lanes not valid."""
+    rng = np.random.default_rng(n)
+    valid = torch.as_tensor(rng.random(n) < 0.8, device=cuda)
+    for kind in ("wire", "random"):
+        data = _frames(n, n) if kind == "wire" else rng.integers(
+            0, 256, (n, pkt.MTU)).astype(np.uint8)
+        d = torch.as_tensor(data, device=cuda)
+        tables = list(_tables(n)) + [_random_table(c, n + c)
+                                     for c in (1, 3, 8)]
+        for rules, modes in tables:
+            r = torch.as_tensor(rules.astype(np.int64), device=cuda)
+            m = torch.as_tensor(modes, device=cuda)
+            before = match_ops.launches
+            ctx, eom = match_ops.match_first(d, r, m, valid)
+            torch.cuda.synchronize()
+            assert match_ops.launches == before + 1
+            want_ctx, want_eom = match_first_ref(d, r, m, valid)
+            assert torch.equal(ctx, want_ctx) and torch.equal(eom, want_eom)
+            assert ctx.dtype == torch.int32 and eom.dtype == torch.bool
+
+
+@pytest.mark.parametrize("layout", ["rows_of_1540", "offset_4", "rows_of_36"])
+def test_match_first_kernel_without_staged_heads(cuda, layout):
+    """Frames the kernel cannot stage 16 bytes at a time (a row size not a
+    multiple of 16 or under 64 bytes, or a base 4 bytes off alignment)
+    read every word from memory; same answers as the plain version."""
+    rng = np.random.default_rng(len(layout))
+    n = 1000
+    row = {"rows_of_1540": 1540, "offset_4": pkt.MTU, "rows_of_36": 36}[
+        layout]
+    buf = torch.as_tensor(rng.integers(0, 256, n * row + 4).astype(np.uint8),
+                          device=cuda)
+    off = 4 if layout == "offset_4" else 0
+    d = buf[off:off + n * row].view(n, row)
+    assert d.is_contiguous() and (d.data_ptr() % 16 == 0) == (off == 0)
+    valid = torch.as_tensor(rng.random(n) < 0.8, device=cuda)
+    for c in (1, 3, 8):
+        rules, modes = _random_table(c, c)
+        rules[..., 1] = np.where(rules[..., 1] == 0xFFFFFFFF, 0xFF,
+                                 rules[..., 1])     # let some rules pass
+        r = torch.as_tensor(rules.astype(np.int64), device=cuda)
+        m = torch.as_tensor(modes, device=cuda)
+        ctx, eom = match_ops.match_first(d, r, m, valid)
+        want_ctx, want_eom = match_first_ref(d, r, m, valid)
+        assert torch.equal(ctx, want_ctx) and torch.equal(eom, want_eom)
+
+
+def test_match_batch_is_one_launch(cuda):
+    data, length, valid = pkt.stack_frames_np(
+        [pkt.make_slmp(i, 0, pkt.SLMP_FLAG_EOM, np.arange(9, dtype=np.uint8),
+                       dport=9331) for i in range(64)])
+    batch = pkt.PacketBatch.from_numpy(data, length, valid, cuda)
+    tables = matching.MatchTables.build([matching.ruleset_slmp(9331)],
+                                        device=cuda)
+    before = match_ops.launches
+    ctx, eom = matching.match_batch(batch, tables)
+    assert match_ops.launches == before + 1
+    assert bool((ctx == 0).all()) and bool(eom.all())
+
+
 def _bits(t):
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
                    8: torch.int64}[t.element_size()])
@@ -114,6 +197,59 @@ def test_gather_kernel_bit_exact(cuda, dtype):
     assert ddt_ops.launches == before + 1
     want = ddt_gather_ref(src, idx, fill)
     assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def _contiguous_map(s, i, rng):
+    """A piecewise-contiguous map, as a committed datatype gives: runs of
+    random length and start (aligned or not), holes and indices >= S."""
+    out, k = [], 0
+    while k < i:
+        ln = int(rng.integers(1, 40))
+        kind = rng.random()
+        if kind < 0.1:
+            out.append(np.full(ln, -1))
+        elif kind < 0.15:
+            out.append(np.full(ln, s + 5))
+        else:
+            start = int(rng.integers(0, s))
+            out.append(np.arange(start, start + ln))      # may pass S
+        k += ln
+    return np.concatenate(out)[:i].astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("offset", ["none", "src", "idx"])
+def test_gather_vector_body_bit_exact(cuda, dtype, offset):
+    """The vector body (16-byte groups) and the scalar path against the
+    plain version, bit for bit: element sizes 1, 2, 4 and 8; src or idx a
+    view one element in, which breaks 16-byte alignment (a misaligned src
+    keeps the vector body but no run is aligned; a misaligned idx takes
+    the scalar path); odd I; contiguous and random maps; -0.0 and NaN
+    payloads kept."""
+    rng = np.random.default_rng(len(offset))
+    esize = torch.empty((), dtype=dtype).element_size()
+    s = 5003
+    raw = torch.as_tensor(rng.integers(0, 2**63, s + 1, dtype=np.int64))
+    src = raw.view(torch.uint8)[: (s + 1) * esize].view(dtype)
+    if dtype.is_floating_point:
+        src[::5] = -0.0
+        src[1::7] = float("nan")
+    so, io = int(offset == "src"), int(offset == "idx")
+    src = src.to(cuda)[so:so + s]
+    fill = -0.0 if dtype.is_floating_point else 3
+    for i in (1, 15, 4099, 70001):
+        for name in ("contiguous", "random"):
+            idx = _contiguous_map(s, i + 1, rng) if name == "contiguous" \
+                else rng.integers(-1, s + 50, i + 1).astype(np.int32)
+            ti = torch.as_tensor(idx, device=cuda)[io:io + i]
+            assert (ti.data_ptr() % 16 == 0) == (io == 0)
+            before = ddt_ops.launches
+            got = ddt_ops.gather(src, ti, fill=fill)
+            torch.cuda.synchronize()
+            assert ddt_ops.launches == before + 1
+            want = ddt_gather_ref(src.cpu(), ti.cpu(), fill)
+            assert torch.equal(_bits(got.cpu()), _bits(want)), (i, name)
 
 
 def test_wrappers_raise_on_bad_cuda_inputs(cuda):
@@ -170,13 +306,14 @@ def test_spin_ingest_and_overlap_on_cuda(cuda):
     pipe = tdata.PacketizedPipeline(vocab=1000, batch=4, seq=300)
     gi, ci = tdata.SpinIngest(pipe, device=cuda), tdata.SpinIngest(
         pipe, device="cpu")
-    raw = pipe.packets_for_step(1)
-    m, g = match_ops.launches, ddt_ops.launches
-    got = gi(raw)
-    assert (match_ops.launches - m, ddt_ops.launches - g) == (1, 2)
-    want = ci(raw)
-    for k in ("tokens", "targets"):
-        assert torch.equal(got[k].cpu(), want[k])
+    for step in range(3):
+        raw = pipe.packets_for_step(step)
+        m, g = match_ops.launches, ddt_ops.launches
+        got = gi(raw)
+        assert (match_ops.launches - m, ddt_ops.launches - g) == (1, 1)
+        want = ci(raw)
+        for k in ("tokens", "targets"):
+            assert torch.equal(got[k].cpu(), want[k])
     w = torch.eye(256, device=cuda)
     feeds = [pipe.packets_for_step(i) for i in range(4)]
 

@@ -151,6 +151,51 @@ def test_match_batch_lowest_context_wins():
     assert ctx.numpy()[3] == -1
 
 
+@pytest.mark.parametrize("mode", [tmatching.MODE_AND, tmatching.MODE_OR])
+@pytest.mark.parametrize("frames", ["wire", "random"])
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_match_batch_fused_plain_equals_jax(c, frames, mode):
+    """The port's match_batch (the fused form's plain version on the CPU)
+    against the JAX package's match_batch: random contexts in ``mode``
+    with word indices up to W + 7 (clipped to W - 1), built-in contexts
+    between them, and invalid lanes."""
+    n = 40
+    data = wire_frames(n, c) if frames == "wire" else random_frames(n, c)
+    rules, modes = random_rules(c, 100 + c, idx_hi=W + 8)
+    modes[:] = mode
+    b_rules, b_modes = builtin_rules()
+    for k in range(1, c, 2):
+        rules[k], modes[k] = b_rules[k // 2 % 3], b_modes[k // 2 % 3]
+    valid = np.random.default_rng(c).random(n) < 0.8
+    length = np.full(n, 200, np.int32)
+    ctx, eom = tmatching.match_batch(
+        tpkt.PacketBatch.from_numpy(data, length, valid, "cpu"),
+        tmatching.MatchTables(torch.as_tensor(rules.astype(np.int64)),
+                              torch.as_tensor(modes)))
+    jctx, jeom = jmatching.match_batch(
+        jpkt.PacketBatch(jnp.asarray(data), jnp.asarray(length),
+                         jnp.asarray(valid)),
+        jmatching.MatchTables(jnp.asarray(rules), jnp.asarray(modes)))
+    assert ctx.dtype == torch.int32 and eom.dtype == torch.bool
+    np.testing.assert_array_equal(ctx.numpy(), np.asarray(jctx))
+    np.testing.assert_array_equal(eom.numpy(), np.asarray(jeom))
+    assert (ctx.numpy()[~valid] == -1).all()
+    if frames == "wire" and c > 1:
+        assert (ctx.numpy() >= 0).any()
+
+
+def test_match_first_rejects_bad_valid():
+    rules, modes = builtin_rules()
+    args = (torch.zeros((3, 1536), dtype=torch.uint8),
+            torch.as_tensor(rules.astype(np.int64)), torch.as_tensor(modes))
+    for valid in (torch.ones(3, dtype=torch.int32), torch.ones(4,
+                                                               dtype=bool)):
+        with pytest.raises(ValueError):
+            tmatch_ops.match_first(*args, valid)
+    ctx, eom = tmatch_ops.match_first(*args, torch.ones(3, dtype=bool))
+    assert ctx.shape == eom.shape == (3,)
+
+
 def test_match_rejects_bad_inputs():
     rules, modes = builtin_rules()
     with pytest.raises(ValueError):
