@@ -10,10 +10,11 @@ and nothing of the JAX package ``repro``.  Phases:
   1. the card's name and power limit; build every kernel from the
      checkout's sources (one nvcc per source, all started together, and
      an empty kernel for the launch floor); K1 and K2 must compile with
-     no stack frame (K1's register array stays in registers); K4 must be
-     the warp-specialised Hopper kernel: its ptxas report shows no spills
-     and no ignored ``setmaxnreg`` (C7508), and its SASS (``cuobjdump
-     -sass``) holds HGMMA and UTMALDG instructions;
+     no stack frame (K1's register array stays in registers); K3 must
+     compile with no spills; K4 must be the warp-specialised Hopper
+     kernel: its ptxas report shows no spills and no ignored
+     ``setmaxnreg`` (C7508), and its SASS (``cuobjdump -sass``) holds
+     HGMMA and UTMALDG instructions;
   2. K1 (matcher) against its plain PyTorch versions on the card, bit for
      bit, in both forms, the fused first-match stage (with a fifth of the
      lanes not valid) and the (N, C) form: built-in and random rule
@@ -26,8 +27,11 @@ and nothing of the JAX package ``repro``.  Phases:
      sources and index maps one element off 16-byte alignment; sources
      up to 4 MiB;
   3a. K3 (checksum) against its plain version, bit for bit: 64 ICMP echo
-     frames and 65,536 random frames of random (odd and even) lengths
-     with non-zero bytes past each length;
+     frames (which verify to 0); edge lengths (negative, 0,
+     around start, around the MTU and past it, 2**31 - 1) at N = 1, 15,
+     16, 17, 64, 4,099 and 65,543 for start 0, 34 and 35; a row slice of
+     a larger buffer; 65,536 and 262,144 random frames of random (odd and
+     even) lengths with non-zero bytes past each length;
   3b. K4 (flash attention) against its plain version on the card, each
      case printing its max abs error and its row error (see K4_ROW_TOL):
      gemma3-1b's prefill shape (causal, window 0 and 512), a qwen3-1.7b
@@ -73,7 +77,12 @@ and nothing of the JAX package ``repro``.  Phases:
      bound counted in selected words and in 32-byte sectors; K2's vector
      body against its scalar body (the earlier kernel), at the ingest's
      one gather against its earlier two, on a Fig 9 complex map whose
-     message is about 4 MiB and on a 4 MiB permutation;
+     message is about 4 MiB and on a 4 MiB permutation; K3 through the
+     wrapper and through the earlier wrapper in turns (new, earlier,
+     earlier, new) at the path's 64 ICMP requests and at 65,536 and
+     262,144 random frames, device time and the host's cost to issue a
+     call, against its bound in live bytes and in the 32-byte sectors the
+     live ranges touch;
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
      one ``SpinIngest`` call, one NIC step, one serving prefill and one
      decode step under torch.profiler: kernels per call, device busy time,
@@ -141,15 +150,16 @@ def time_ms(fn, runs=25, per_run=20):
     holds the events back until the host has queued every call, so the
     events bracket device work only, not the host's launch cost.
     host_ms: median host time to issue one call (the wrapper's cost).
-    Raises if issuing took most of the spin (the queue could have run
-    dry, and device_ms would include host time).
+    A run whose issuing took most of the spin (the queue could have run
+    dry, and its device time would include host time) is discarded and
+    taken again; raises after a third such run.
     """
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    dev, host = [], []
-    for _ in range(runs):
+    dev, host, discarded = [], [], 0
+    while len(dev) < runs:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         ts = time.perf_counter()
@@ -162,8 +172,11 @@ def time_ms(fn, runs=25, per_run=20):
         b.record()
         b.synchronize()
         if t1 - ts > 0.8 * SLEEP_S:
-            raise AssertionError("timing: issuing the calls outlasted the "
-                                 "GPU spin")
+            discarded += 1
+            if discarded == 3:
+                raise AssertionError("timing: issuing the calls outlasted "
+                                     "the GPU spin in 3 runs")
+            continue
         dev.append(a.elapsed_time(b) / per_run)
         host.append((t1 - t0) * 1e3 / per_run)
     return statistics.median(dev), statistics.median(host)
@@ -287,6 +300,7 @@ def phase_build():
                                  f"{frames} (arrays left registers)")
         log(f"[1] {name}: SASS instructions per kernel "
             f"{sass_sizes(build, name)}")
+    check_k3_build(build)
     check_k4_build(build)
     empty = ctypes.CDLL(str(lib)).repro_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -310,6 +324,29 @@ def sass_sizes(build, name):
         key = short.group(2) + (short.group(3) or "") if short else mangled
         out[key] = len(re.findall(r"/\*[0-9a-f]{4}\*/", fn))
     return out
+
+
+def check_k3_build(build):
+    """K3 must compile with no spills.  Prints its registers, shared
+    memory and spills, and its SASS size."""
+    import re
+    text = build.build_logs.get("checksum")
+    if text is None:
+        raise AssertionError("K3: no ptxas report (delete src/repro_torch/"
+                             "kernels/_build and run again)")
+    part = text.split("Compiling entry function")[1:]
+    if len(part) != 1 or "checksum_kernel" not in part[0]:
+        raise AssertionError(f"K3: ptxas reports {len(part)} kernels")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill "
+                                         r"(?:stores|loads)", part[0])]
+    regs = re.search(r"Used (\d+) registers", part[0])
+    smem = re.search(r"(\d+) bytes smem", part[0])
+    log(f"[1] K3 ptxas: {regs.group(1) if regs else '?'} registers, "
+        f"{smem.group(1) if smem else 0} B static shared memory, spill "
+        f"bytes {spills}; SASS instructions per kernel "
+        f"{sass_sizes(build, 'checksum')}")
+    if not spills or any(spills):
+        raise AssertionError(f"K3: ptxas reports spills {spills}")
 
 
 def check_k4_build(build):
@@ -443,31 +480,68 @@ def phase_k2(dev):
             f"{int((idx >= s).sum())})")
 
 
+def k3_random(dev, n, seed, start=34):
+    """N random frames on the card: bytes in [1, 255] (so the byte after an
+    odd length counts), lengths uniform in [0, 1536], the edge lengths
+    (negative, 0, start - 1 .. start + 1, around the MTU and past it,
+    2**31 - 1) first."""
+    import torch
+    from repro_torch.core import packet as pkt
+    g = torch.Generator(device=dev).manual_seed(seed)
+    data = torch.randint(1, 256, (n, pkt.MTU), dtype=torch.uint8,
+                         device=dev, generator=g)
+    lengths = torch.randint(0, pkt.MTU + 1, (n,), dtype=torch.int32,
+                            device=dev, generator=g)
+    edge = [-7, -1, 0, start - 1, start, start + 1, pkt.MTU - 1, pkt.MTU,
+            pkt.MTU + 7, 2**31 - 1][:n]
+    lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32)
+    return data, lengths
+
+
+def k3_check(tag, d, ln, start):
+    """K3 against the plain version, bit for bit.  Returns the checksums."""
+    import torch
+    from repro_torch.kernels.checksum import ops, ref
+    want = ref.checksum_ref(d, ln, start)
+    got = ops.internet_checksum(d, ln, start=start)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 mismatch at {tag} start={start}: "
+                             f"{int((got != want).sum())} checksums")
+    return want
+
+
 def phase_k3(dev):
     import numpy as np
     import torch
     from repro_torch.core import packet as pkt
-    from repro_torch.kernels.checksum import ops, ref
     rng = np.random.default_rng(3)
     icmp = pkt.stack_frames_np([pkt.make_icmp_echo(rng.integers(
         0, 256, int(rng.integers(0, 1400))).astype(np.uint8), seq=i)
         for i in range(64)])[:2]
-    n = 65536
-    rand = (rng.integers(1, 256, (n, pkt.MTU)).astype(np.uint8),
-            rng.integers(0, pkt.MTU + 1, n).astype(np.int32))
-    for name, (data, lengths) in (("icmp", icmp), ("random", rand)):
-        d = torch.as_tensor(data, device=dev)
-        ln = torch.as_tensor(lengths, device=dev)
-        got = ops.internet_checksum(d, ln, start=pkt.L4_BASE)
-        want = ref.checksum_ref(d, ln, pkt.L4_BASE)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 mismatch on {name} frames")
-        if name == "icmp" and bool(got.any()):
-            raise AssertionError("K3: an ICMP echo request does not verify")
-        log(f"[3a] K3 {name} N={len(lengths)} start={pkt.L4_BASE}: "
-            f"bit-exact ({int((lengths % 2).sum())} odd lengths, "
-            f"{int((got == 0).sum())} zero sums)")
+    d, ln = (torch.as_tensor(x, device=dev) for x in icmp)
+    if bool(k3_check("icmp", d, ln, pkt.L4_BASE).any()):
+        raise AssertionError("K3: an ICMP echo request does not verify")
+    log(f"[3a] K3 icmp N=64 start={pkt.L4_BASE}: bit-exact, all verify to 0 "
+        f"({int((ln % 2).sum())} odd lengths)")
+    # edge lengths at N around the kernel's 8-packet block and beyond, for
+    # even and odd starts
+    for start in (0, 34, 35):
+        for n in (1, 15, 16, 17, 64, 4099, 65543):
+            k3_check(f"N={n}", *k3_random(dev, n, n + start, start), start)
+    log("[3a] K3 edge lengths (-7, -1, 0, start-1..start+1, 1535, 1536, "
+        "1543, 2**31-1), N in {1, 15, 16, 17, 64, 4099, 65543}, start in "
+        "{0, 34, 35}: bit-exact")
+    # a row slice of a larger buffer: the data pointer 5 rows in
+    d, ln = k3_random(dev, 3000, 1)
+    k3_check("row slice", d[5:2905], ln[5:2905], 34)
+    log("[3a] K3 a row slice (2,900 frames from row 5 of 3,000): bit-exact")
+    for n in (65536, 262144):
+        d, ln = k3_random(dev, n, n)
+        got = k3_check(f"N={n}", d, ln, pkt.L4_BASE)
+        log(f"[3a] K3 random N={n} start={pkt.L4_BASE}: bit-exact "
+            f"({int((ln % 2).sum())} odd lengths, {int((got == 0).sum())} "
+            f"zero sums)")
 
 
 def k4_inputs(dev, b, sq, sk, h, kv, d, dtype, seed):
@@ -953,6 +1027,122 @@ def time_k2(tag, src, idx):
     return ms, plain, lib, bound, scalar
 
 
+def k3_earlier_wrapper(data, lengths, *, start):
+    """K3's earlier wrapper (the library looked up and its argument types
+    tested on every call, the checks one by one): the "before" of the
+    wrapper's host cost."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    if data.dim() != 2 or data.dtype != torch.uint8 or data.shape[1] % 2:
+        raise ValueError("internet_checksum: data must be (N, W) uint8")
+    if lengths.shape != data.shape[:1] or lengths.dtype != torch.int32:
+        raise ValueError("internet_checksum: lengths must be (N,) int32")
+    if start < 0:
+        raise ValueError("internet_checksum: start must be >= 0")
+    if data.device != lengths.device:
+        raise ValueError("internet_checksum: different devices")
+    if data.device.type == "cpu":
+        raise ValueError("internet_checksum: CUDA only here")
+    if data.device.type != "cuda":
+        raise ValueError("internet_checksum: unsupported device")
+    if not (data.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("internet_checksum: not contiguous")
+    if data.shape[1] % 16 or data.data_ptr() % 16:
+        raise ValueError("internet_checksum: rows must be 16-byte aligned")
+    out = torch.empty(data.shape[:1], dtype=torch.int64, device=data.device)
+    if data.shape[0] == 0:
+        return out
+    fn = build.load("checksum").repro_checksum
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    err = fn(data.data_ptr(), lengths.data_ptr(), data.shape[0],
+             data.shape[1], start, out.data_ptr(),
+             torch.cuda.current_stream(data.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"internet_checksum: launch failed ({err})")
+    return out
+
+
+def k3_bytes(ln, start, width):
+    """(live bytes, sector bytes) K3 must move for lengths ``ln``: the live
+    words (2 B each), or the 32-byte sectors their rounded-out ranges touch
+    (``ref.live_byte_ranges``), plus each length read (4 B) and each
+    checksum written (8 B)."""
+    import torch
+    from repro_torch.kernels.checksum import ref
+    words = ((torch.div(ln.long() + 1, 2, rounding_mode="floor")
+              .clamp(0, width // 2) - start // 2).clamp(min=0))
+    lo, hi = ref.live_byte_ranges(ln, start, width)
+    sectors = torch.where(hi > lo, (hi + 31) // 32 - lo // 32, 0)
+    fixed = ln.numel() * (4 + 8)
+    return int(words.sum()) * 2 + fixed, int(sectors.sum()) * 32 + fixed
+
+
+def time_k3(dev, launches, reqs):
+    """K3 at the path's 64 ICMP echo requests and at 65,536 and 262,144
+    random frames.  Returns the ``kernels`` entry (the path's shape, with
+    the larger shapes as extra keys)."""
+    import torch
+    from repro_torch.core import packet as pkt
+    from repro_torch.kernels.checksum import ops as k3, ref as k3ref
+    start = pkt.L4_BASE
+    entry = dict(name="checksum", route="cuda",
+                 source="src/repro_torch/kernels/checksum/checksum.cu",
+                 replaces="src/repro/kernels/checksum/checksum.py:48",
+                 launches=launches["checksum"])
+    shapes = (("path", (reqs.data, reqs.length)),
+              ("random", k3_random(dev, 65536, 13)),
+              ("random", k3_random(dev, 262144, 14)))
+    for tag, (d, ln) in shapes:
+        n = ln.numel()
+        want = k3ref.checksum_ref(d, ln, start)
+        got = k3.internet_checksum(d, ln, start=start)
+        err = int((got - want).abs().max())
+        if err or not torch.equal(k3_earlier_wrapper(d, ln, start=start),
+                                  want):
+            raise AssertionError(f"K3 mismatch at the timed shape N={n}")
+        nbytes, sbytes = k3_bytes(ln, start, pkt.MTU)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        sbound = sbytes / HBM_BYTES_PER_S * 1e3
+
+        def new():
+            return k3.internet_checksum(d, ln, start=start)
+
+        def old():
+            return k3_earlier_wrapper(d, ln, start=start)
+
+        # in turns: new, earlier, earlier, new
+        ms, host = time_ms(new)
+        old_ms, old_h = time_ms(old)
+        old_ms2, old_h2 = time_ms(old)
+        ms2, host2 = time_ms(new)
+        small = n <= 65536
+        plain, phost = time_ms(lambda: k3ref.checksum_ref(d, ln, start),
+                               runs=25 if small else 5,
+                               per_run=20 if small else 4)
+        log(f"[6] K3 {tag} N={n}: device {ms * 1e3:.3f} / {ms2 * 1e3:.3f} "
+            f"us, issued in {host * 1e3:.2f} / {host2 * 1e3:.2f} us; the "
+            f"earlier wrapper {old_ms * 1e3:.3f} / {old_ms2 * 1e3:.3f} us, "
+            f"issued in {old_h * 1e3:.2f} / {old_h2 * 1e3:.2f} us (in turns: "
+            f"new, earlier, earlier, new); bound {bound * 1e3:.3f} us by "
+            f"live bytes ({nbytes} B, {bound / ms * 100:.1f} %), "
+            f"{sbound * 1e3:.3f} us by sectors ({sbytes} B, "
+            f"{sbound / ms * 100:.1f} %); plain {plain * 1e3:.3f} us "
+            f"(issued in {phost * 1e3:.2f} us)")
+        if tag == "path":
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by="bytes", library_ms=None,
+                         sector_bound_ms=sbound, host_ms=host,
+                         earlier_wrapper_host_ms=old_h)
+        else:
+            entry.update({f"ms_{n}": ms, f"bound_ms_{n}": bound,
+                          f"sector_bound_ms_{n}": sbound,
+                          f"plain_ms_{n}": plain})
+    return entry
+
+
 def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
     """Time the launch floor and K1-K4 at their paths' shapes.  Returns
     the entries of the ``kernels`` line."""
@@ -1093,39 +1283,11 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
                                               device=dev),
             torch.randperm(1 << 20, device=dev).to(torch.int32))
 
-    # K3 at the checksum path's shape (64 ICMP echo requests), and at
-    # 65,536 random frames for the record.  Bytes: the live words, the
-    # lengths read and the int64 checksums written.
-    from repro_torch.kernels.checksum import ops as k3, ref as k3ref
-    rng = np.random.default_rng(13)
-    big = (torch.as_tensor(rng.integers(1, 256, (65536, pkt.MTU)).astype(
-        np.uint8), device=dev), torch.as_tensor(rng.integers(
-            0, pkt.MTU + 1, 65536).astype(np.int32), device=dev))
-    for tag, (d, ln) in (("path", (reqs.data, reqs.length)),
-                         ("random", big)):
-        start = pkt.L4_BASE
-        words = ((torch.div(ln.long() + 1, 2, rounding_mode="floor")
-                  .clamp(max=pkt.MTU // 2) - start // 2).clamp(min=0))
-        nbytes = int(words.sum()) * 2 + ln.numel() * (4 + 8)
-        got = k3.internet_checksum(d, ln, start=start)
-        err = int((got != k3ref.checksum_ref(d, ln, start)).sum())
-        if err:
-            raise AssertionError("K3 mismatch at the timed shape")
-        ms, host = time_ms(lambda: k3.internet_checksum(d, ln, start=start))
-        plain, phost = time_ms(lambda: k3ref.checksum_ref(d, ln, start))
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[6] K3 {tag} N={ln.numel()}: device {ms * 1e3:.3f} us "
-            f"(wrapper issues a call in {host * 1e3:.2f} us), plain device "
-            f"{plain * 1e3:.3f} us (issued in {phost * 1e3:.2f} us), bound "
-            f"{bound * 1e3:.3f} us ({nbytes} B)")
-        if tag == "path":
-            out.append(dict(
-                name="checksum", route="cuda",
-                source="src/repro_torch/kernels/checksum/checksum.cu",
-                replaces="src/repro/kernels/checksum/checksum.py:48",
-                launches=launches["checksum"], max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                library_ms=None))
+    # K3 at the checksum path's shape (64 ICMP echo requests) and at
+    # 65,536 and 262,144 random frames (the last four times the L2): the
+    # wrapper against the earlier wrapper in turns, the plain version, and
+    # two bounds.
+    out.append(time_k3(dev, launches, reqs))
 
     # K4 on the prompt's own q/k/v of a global and a local layer of the
     # serving path; SDPA on the same tensors as the yardstick.  The entry's

@@ -4,23 +4,35 @@
 // checksum_pallas (body _checksum_kernel), and computes what its plain
 // reference checksum_ref computes, bit for bit: per packet, the sum in
 // 32 bits of the big-endian 16-bit words with word index in
-// [start / 2, (length + 1) / 2), two end-around-carry folds, and
-// ~sum & 0xFFFF.  For an odd length the last word pairs the final byte with
-// the byte that follows it in the buffer, whatever that byte is, as the
-// reference reads it.
+// [start / 2, (length + 1) / 2), clipped to width / 2, two end-around-carry
+// folds, and ~sum & 0xFFFF.  (length + 1) is taken in int32 as the
+// reference takes it: a negative length, and a length of 2**31 - 1 (where
+// it wraps), has no live word.  For an odd length the last word pairs the
+// final byte with the byte that follows it in the buffer, whatever that
+// byte is, as the reference reads it.
 //
 // Design.  One warp per packet, eight packets per block.  The lanes read
-// the packet's live 16-byte chunks (a chunk is 8 words) with vector loads,
-// neighbouring lanes on neighbouring chunks, add the live words of each
-// chunk, and reduce across the warp with shuffles; lane 0 folds and writes.
-// Chunks outside the live word range are never read, so a short packet
-// costs a few sectors, not its whole 1,536-byte row.  The TPU kernel pads N
-// to its 128-row tile; here a block's tail warps simply return.
+// the packet's live 16-byte chunks (a chunk is 8 words; ref.live_byte_ranges
+// gives the bytes they cover) with vector loads, neighbouring lanes on
+// neighbouring chunks, add the live words of each chunk, and reduce across
+// the warp with shuffles; lane 0 folds and writes.  Chunks outside the live
+// word range are never read, so a short packet costs a few sectors, not its
+// whole 1,536-byte row.  The TPU kernel pads N to its 128-row tile; here a
+// block's tail warps simply return.
 //
 // What bounds it on the H100: bytes.  Each packet's live bytes are read
 // once, its length read and its checksum written once; there are about 3
-// integer operations per byte, far below the card's integer rate.
+// integer operations per byte, far below the card's integer rate.  On
+// large batches it stays below that bound: every load waits for the
+// packet's length, and a lane's chunks (up to 3 at 1,536 bytes) are loaded
+// one after another, so a warp has at most 512 bytes in flight and none
+// while it waits for its length.  The system's callers send 64 frames a
+// call, all in L2, where the cost is the launch and two dependent round
+// trips (length, then data); a body that keeps more bytes in flight
+// (a persistent grid streaming the live ranges into shared memory) pays
+// for itself only on batches of thousands of frames, which no caller sends.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,7 +61,9 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (pkt >= n) return;
   const int w_lo = start / 2;
   const int len = lengths[pkt];
-  const int w_hi = min(len >= 0 ? (len + 1) / 2 : 0, width / 2);
+  // (len + 1) / 2 with the int32 wrap of the reference, without overflow
+  const int w_hi = len >= 0 && len < INT_MAX
+                       ? min(len / 2 + (len & 1), width / 2) : 0;
   const uint4* row = reinterpret_cast<const uint4*>(data + pkt * width);
   uint32_t sum = 0;
   for (int c = w_lo / 8 + lane; c < (w_hi + 7) / 8; c += 32) {

@@ -8,6 +8,7 @@ takes the plain version in ``ref.py``; a CUDA tensor launches
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,13 +18,13 @@ from repro_torch.kernels.checksum import ref as _ref
 launches = 0
 
 
-def _lib():
+@functools.cache
+def _fn():
+    """The library function, resolved and typed once."""
     fn = build.load("checksum").repro_checksum
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p, p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -37,29 +38,30 @@ def internet_checksum(data: torch.Tensor, lengths: torch.Tensor, *,
     if data.dim() != 2 or data.dtype != torch.uint8 or data.shape[1] % 2:
         raise ValueError("internet_checksum: data must be (N, W) uint8, W "
                          "even")
-    if lengths.shape != data.shape[:1] or lengths.dtype != torch.int32:
+    n, w = data.shape
+    if lengths.shape != (n,) or lengths.dtype != torch.int32:
         raise ValueError("internet_checksum: lengths must be (N,) int32")
     if start < 0:
         raise ValueError("internet_checksum: start must be >= 0")
-    if data.device != lengths.device:
+    dev = data.device
+    if lengths.device != dev:
         raise ValueError("internet_checksum: data and lengths on different "
                          "devices")
-    if data.device.type == "cpu":
+    if dev.type == "cpu":
         return _ref.checksum_ref(data, lengths, start)
-    if data.device.type != "cuda":
-        raise ValueError(f"internet_checksum: unsupported device "
-                         f"{data.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"internet_checksum: unsupported device {dev}")
     if not (data.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("internet_checksum: data and lengths must be "
                          "contiguous")
-    if data.shape[1] % 16 or data.data_ptr() % 16:
+    ptr = data.data_ptr()
+    if w % 16 or ptr % 16:
         raise ValueError("internet_checksum: rows must be 16-byte aligned")
-    out = torch.empty(data.shape[:1], dtype=torch.int64, device=data.device)
-    if data.shape[0] == 0:
+    out = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n == 0:
         return out
-    err = _lib()(data.data_ptr(), lengths.data_ptr(), data.shape[0],
-                 data.shape[1], start, out.data_ptr(),
-                 torch.cuda.current_stream(data.device).cuda_stream)
+    err = _fn()(ptr, lengths.data_ptr(), n, w, start, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"internet_checksum: CUDA launch failed (error "
                            f"{err})")

@@ -349,6 +349,62 @@ def test_checksum_kernel_bit_exact(cuda, start):
     assert not got.any()
 
 
+def _checksum_inputs(n, start, seed):
+    """N random frames over non-zero bytes (the byte after an odd length
+    counts), with the edge lengths first: negative, 0, around ``start``,
+    around the MTU and past it."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(1, 256, (n, pkt.MTU)).astype(np.uint8)
+    lengths = rng.integers(0, pkt.MTU + 1, n).astype(np.int32)
+    edges = [-7, -1, 0, start - 1, start, start + 1, pkt.MTU - 1, pkt.MTU,
+             pkt.MTU + 7, 2**31 - 1]
+    lengths[:len(edges)] = edges[:n]
+    return torch.as_tensor(data), torch.as_tensor(lengths)
+
+
+@pytest.mark.parametrize("start", [0, 34, 35])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 4099, 65543])
+def test_checksum_edge_cases_bit_exact(cuda, n, start):
+    """K3 equals the plain version bit for bit at N around its 8-packet
+    block and beyond, edge lengths included (2**31 - 1 has no live word,
+    as in the reference); each call is one launch."""
+    d, ln = _checksum_inputs(n, start, seed=n + start)
+    want = checksum_ref(d, ln, start)
+    before = ck_ops.launches
+    got = ck_ops.internet_checksum(d.to(cuda), ln.to(cuda), start=start)
+    torch.cuda.synchronize()
+    assert ck_ops.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_checksum_row_slice_and_icmp(cuda):
+    """A batch that is a row slice of a larger buffer (its data pointer
+    offset by whole 1,536-byte rows, still 16-byte aligned), and ICMP echo
+    requests, which verify to 0."""
+    d, ln = _checksum_inputs(3000, 34, seed=7)
+    gd, gl = d.to(cuda), ln.to(cuda)
+    got = ck_ops.internet_checksum(gd[5:2905], gl[5:2905], start=34)
+    assert torch.equal(got.cpu(), checksum_ref(d[5:2905], ln[5:2905], 34))
+    rng = np.random.default_rng(8)
+    icmp = [pkt.make_icmp_echo(rng.integers(0, 256, k).astype(np.uint8))
+            for k in range(0, 1400, 7)]
+    data, lengths, _ = pkt.stack_frames_np(icmp)
+    got = ck_ops.internet_checksum(torch.as_tensor(data, device=cuda),
+                                   torch.as_tensor(lengths, device=cuda),
+                                   start=pkt.L4_BASE)
+    assert got.numel() == len(icmp) and not got.any()
+
+
+def test_checksum_raises_on_unaligned_rows(cuda):
+    buf = torch.zeros(4 * pkt.MTU + 16, dtype=torch.uint8, device=cuda)
+    ln = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck_ops.internet_checksum(buf[8:8 + 4 * pkt.MTU].view(4, pkt.MTU), ln,
+                                 start=34)
+    with pytest.raises(ValueError):
+        ck_ops.internet_checksum(buf[:4 * 40].view(4, 40), ln, start=34)
+
+
 FA_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
     (1, 300, 300, 4, 1, 256, True, 0, torch.bfloat16),
     (2, 300, 300, 4, 1, 256, True, 64, torch.bfloat16),
