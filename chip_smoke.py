@@ -62,6 +62,20 @@ and nothing of the JAX package ``repro``.  Phases:
      agrees with the plain version, and the planted faults fail there
      too.  Prints prefill ms, decode ms/token
      and tokens/s;
+  5c. the fabric and MPI path (``repro_torch.net``, ``repro_torch.mpi``)
+     with its link and NIC states on the card: a 64 KiB SLMP transfer
+     between two nodes at bench_fabric.py's configuration (window 4, loss
+     0 and 0.05), a 2-rank MPI rendezvous of the Fig 9 complex datatype
+     at count 512 whose unpack runs on the receiving NIC (loss 0.02), and
+     an 8-rank allreduce of 4 MiB of int64 per rank (Rabenseifner, loss
+     0).  The transfers' ticks, retransmits and link counters must equal
+     the same runs on the port's CPU and the JAX package's counts
+     (JAX_* below); the buffers must equal the message, the numpy
+     dataloop oracle and numpy's sum; the allreduce's rounds, messages,
+     wire bytes and ticks must equal the JAX package's.  K1 must launch
+     once per NIC step, and nodes whose link delivered nothing must skip
+     the step.  Prints wall time, ms a tick, NIC steps a tick and host
+     reads (synchronisations) a NIC step;
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
@@ -82,11 +96,14 @@ and nothing of the JAX package ``repro``.  Phases:
      earlier, new) at the path's 64 ICMP requests and at 65,536 and
      262,144 random frames, device time and the host's cost to issue a
      call, against its bound in live bytes and in the 32-byte sectors the
-     live ranges touch;
+     live ranges touch.  K1's entry also carries its launches on the
+     fabric path (``fabric_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
-     one ``SpinIngest`` call, one NIC step, one serving prefill and one
-     decode step under torch.profiler: kernels per call, device busy time,
-     the idle share it implies and the kernels with the most device time.
+     one ``SpinIngest`` call, one NIC step, one serving prefill, one
+     decode step and one tick of the 8-rank allreduce (restored from a
+     checkpoint taken mid-run in 5c) under torch.profiler: kernels per
+     call, device busy time, the idle share it implies and the kernels
+     with the most device time.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -126,6 +143,30 @@ SERVE_GEN = 32
 # the sums over up to 2,048 keys run in another order.
 K4_ATOL = {"bfloat16": 0.06, "float32": 1e-4}
 K4_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+# Phase 5c.  SLMP transfer at benchmarks/bench_fabric.py's configuration
+# (64 KiB message, batch 32, 1,024-byte payloads, timeout 12, latency 2,
+# jitter 2, seed 11) at window 4; the MPI rendezvous of
+# benchmarks/bench_mpi.py's overlap sweep (2 ranks, Fig 9 complex datatype
+# at count 512, loss 0.02, latency 2, jitter 2, seed 7); its 8-rank
+# allreduce at 4 MiB of int64 per rank (latency 1, loss 0, seed 31).
+# Counts are logical fabric ticks, which do not depend on the platform.
+# The JAX_* values are what the JAX package of this repository (repro.net,
+# repro.mpi) gives for the same calls, read once on a CPU.
+# BENCH_fabric.json, older than that code, records 101 ticks at loss 0
+# and 124 at loss 0.05; BENCH_mpi.json records the allreduce's numbers.
+FABRIC_WINDOW = 4
+JAX_SLMP = {
+    0.0: dict(ticks=100, retransmits=0, sent_frames=64, links=[
+        (64, 0, 0, 0, 0, 64, 0), (64, 0, 0, 0, 0, 64, 0)]),
+    0.05: dict(ticks=120, retransmits=7, sent_frames=71, links=[
+        (70, 6, 0, 0, 0, 64, 0), (71, 1, 0, 0, 0, 70, 0)]),
+}
+JAX_RDV = dict(ticks=41, retransmits=[1, 0], links=[
+    (64, 1, 0, 0, 0, 63, 0), (64, 0, 0, 0, 0, 64, 0)])
+ALLREDUCE_RANKS = 8
+ALLREDUCE_BYTES = 4 << 20
+JAX_ALLREDUCE = dict(algorithm="allreduce_rab", rounds=6, msgs_total=896,
+                     bytes_wire=58_720_256, ticks=468)
 
 
 def log(*a):
@@ -883,6 +924,184 @@ def phase_checksum_path(dev):
     return reqs, 2
 
 
+def _link_tuples(stats):
+    from repro_torch.net import link
+    return [tuple(l[k] for k in link.COUNTERS) for l in stats]
+
+
+def _assert_on(dev, fab):
+    """The stacked link state and every NIC state live on ``dev``."""
+    import dataclasses
+    tensors = [getattr(fab._stack, f.name)
+               for f in dataclasses.fields(fab._stack)]
+    for node in fab.nodes:
+        st = node.state
+        tensors += [st.l2, st.host, st.msg_state, st.counters, st.expect,
+                    st.alloc.small_fifo, st.mpq.key]
+    bad = {str(t.device) for t in tensors if t.device.type != dev.type}
+    if bad:
+        raise AssertionError(f"fabric state on {bad}, not {dev}")
+
+
+def _fabric_counts(fabs):
+    """(NIC steps, host reads) over the fabrics' nodes and the fabrics."""
+    steps = sum(n.steps for f in fabs for n in f.nodes)
+    reads = sum(n.host_reads for f in fabs for n in f.nodes) + sum(
+        f.host_reads for f in fabs)
+    return steps, reads
+
+
+def slmp_transfer(dev, loss):
+    """One SLMP transfer on a two-node fabric; returns the run's counts."""
+    import numpy as np
+    from repro_torch.core import apps, packet as pkt, slmp
+    from repro_torch.net import Fabric, LinkConfig, Node, SlmpSenderEngine
+    msg = np.random.default_rng(0).integers(0, 256, 1 << 16).astype(np.uint8)
+    cfg = slmp.SlmpSenderConfig(
+        window=FABRIC_WINDOW, mtu_payload=1024, timeout=12, max_retries=64,
+        src_mac=pkt.node_mac(0), dst_mac=pkt.node_mac(1))
+    sender = SlmpSenderEngine(msg, msg_id=1, cfg=cfg)
+    tx = Node("tx", pkt.node_mac(0), [apps.make_null_context()], batch=32,
+              engines=[sender], device=dev)
+    rx = Node("rx", pkt.node_mac(1), [slmp.make_slmp_context()], batch=32,
+              host_bytes=1 << 17, device=dev)
+    fab = Fabric([tx, rx], link_cfg=LinkConfig(loss=loss, latency=2,
+                                               jitter=2),
+                 seed=11, device=dev)
+    _assert_on(dev, fab)
+    t0 = time.perf_counter()
+    ticks = fab.run(max_ticks=50_000)
+    secs = time.perf_counter() - t0
+    _assert_on(dev, fab)
+    if not (sender.done and not sender.failed) or not np.array_equal(
+            rx.read_host(0, len(msg)), msg):
+        raise AssertionError(f"SLMP loss {loss} on {dev}: message not "
+                             "delivered intact")
+    return dict(ticks=ticks, retransmits=sender.sender.retransmits,
+                sent_frames=sender.sender.sent_frames,
+                links=_link_tuples(fab.link_stats()),
+                stats=fab.stats()), secs, fab
+
+
+def mpi_rendezvous(dev):
+    """bench_mpi.py's overlap transfer: a typed rendezvous whose unpack
+    runs on the receiving NIC.  Returns the counts and the buffer."""
+    import numpy as np
+    from repro_torch import mpi
+    from repro_torch.core import ddt
+    from repro_torch.net import LinkConfig
+    reg = mpi.DatatypeRegistry()
+    reg.register(ddt.simple_ddt(), count=1024, name="simple")
+    cid = reg.register(ddt.complex_ddt(), count=512, name="complex")
+    comm = mpi.Communicator(2, registry=reg, seed=0, device=dev)
+    comm.rewire(link_cfg=LinkConfig(loss=0.02, latency=2, jitter=2), seed=7)
+    _assert_on(dev, comm.fabric)
+    c = reg.committed(cid)
+    mem = np.random.default_rng(0).integers(0, 256, c.mem_bytes).astype(
+        np.uint8)
+    buf = np.zeros(c.mem_bytes, np.uint8)
+    t0 = time.perf_counter()
+    r = comm.irecv(1, buf, source=0, tag=1)
+    s = comm.isend(0, 1, mem, tag=1, datatype=cid)
+    comm.wait(r, s, max_ticks=200_000)
+    secs = time.perf_counter() - t0
+    oracle = ddt.unpack_np(c, ddt.pack_np(c, mem),
+                           np.zeros(c.mem_bytes, np.uint8))
+    if not np.array_equal(buf, oracle):
+        raise AssertionError(f"rendezvous on {dev}: buffer != oracle")
+    if comm.engines[0].stats["rdv_sent"] != 1:
+        raise AssertionError("rendezvous: the message went eager")
+    return dict(ticks=comm.now,
+                retransmits=[e.stats["retransmits"] for e in comm.engines],
+                links=_link_tuples(comm.link_stats())), buf, c, secs, comm
+
+
+def phase_fabric(dev):
+    """Phase 5c: the fabric and MPI path on the card, each run held to the
+    same run on the port's CPU (where it is cheap) and to the JAX
+    package's counts.  Returns the fabrics that ran on the card, the
+    8-rank communicator, a checkpoint of it mid-allreduce (phase 7
+    profiles the tick after it) and the wall time of the phase."""
+    import numpy as np
+    import torch
+    from repro_torch import mpi
+    from repro_torch.net import LinkConfig
+    cpu = torch.device("cpu")
+    fabs, t_phase = [], time.perf_counter()
+    for loss in (0.0, 0.05):
+        got, secs, fab = slmp_transfer(dev, loss)
+        fabs.append(fab)
+        want, _, _ = slmp_transfer(cpu, loss)
+        if got != want:
+            raise AssertionError(f"SLMP loss {loss}: card {got} != CPU "
+                                 f"{want}")
+        jax = JAX_SLMP[loss]
+        if [got[k] for k in jax] != list(jax.values()):
+            raise AssertionError(f"SLMP loss {loss}: {got} != the JAX "
+                                 f"package's {jax}")
+        steps, reads = _fabric_counts([fab])
+        log(f"[5c] SLMP 64 KiB, window {FABRIC_WINDOW}, loss {loss}: "
+            f"{got['ticks']} ticks, {got['retransmits']} retransmits, links "
+            f"{got['links']} (= port CPU = JAX package); {secs:.3f} s, "
+            f"{secs / got['ticks'] * 1e3:.3f} ms a tick, "
+            f"{steps / got['ticks']:.3f} NIC steps a tick, "
+            f"{reads / steps:.2f} host reads a NIC step")
+
+    got, buf, c, secs, comm = mpi_rendezvous(dev)
+    fabs.append(comm.fabric)
+    want, cbuf, *_ = mpi_rendezvous(cpu)
+    if got != want or not np.array_equal(buf, cbuf):
+        raise AssertionError(f"rendezvous: card {got} != CPU {want}")
+    if got != JAX_RDV:
+        raise AssertionError(f"rendezvous: {got} != the JAX package's "
+                             f"{JAX_RDV}")
+    steps, reads = _fabric_counts([comm.fabric])
+    log(f"[5c] MPI rendezvous, Fig 9 complex x 512 ({c.msg_bytes} B), "
+        f"loss 0.02: buffer == oracle == port CPU; {got['ticks']} ticks, "
+        f"retransmits {got['retransmits']} (= JAX package); {secs:.3f} s, "
+        f"{secs / got['ticks'] * 1e3:.3f} ms a tick, "
+        f"{steps / got['ticks']:.3f} NIC steps a tick, "
+        f"{reads / steps:.2f} host reads a NIC step")
+
+    cfg = mpi.MpiConfig(batch=32, slmp_window=64, mtu_payload=1408,
+                        n_rdv_slots=8, coll_seg_bytes=128 << 10)
+    comm = mpi.Communicator(ALLREDUCE_RANKS, seed=0, cfg=cfg,
+                            link_cfg=LinkConfig(latency=1), device=dev)
+    rng = np.random.default_rng(21)
+    vals = [rng.integers(0, 1 << 20, ALLREDUCE_BYTES // 8).astype(np.int64)
+            for _ in range(ALLREDUCE_RANKS)]
+    ref = np.sum(np.stack(vals), axis=0)
+    comm.rewire(link_cfg=LinkConfig(loss=0.0, latency=1), seed=31)
+    _assert_on(dev, comm.fabric)
+    t0 = time.perf_counter()
+    h = mpi.iallreduce(comm, vals, algorithm="auto")
+    mid = JAX_ALLREDUCE["ticks"] // 2
+    comm.progress(mid)
+    snap = comm.checkpoint()
+    comm.wait(h, max_ticks=4_000_000)
+    secs = time.perf_counter() - t0
+    _assert_on(dev, comm.fabric)
+    fabs.append(comm.fabric)
+    if not all(np.array_equal(o, ref) for o in h.result):
+        raise AssertionError("8-rank allreduce != numpy's sum")
+    got = dict(algorithm=h.algorithm, rounds=h.rounds,
+               msgs_total=h.msgs_total, bytes_wire=h.bytes_wire,
+               ticks=comm.now)
+    if got != JAX_ALLREDUCE:
+        raise AssertionError(f"allreduce: {got} != the JAX package's "
+                             f"{JAX_ALLREDUCE}")
+    steps, reads = _fabric_counts([comm.fabric])
+    log(f"[5c] allreduce, {ALLREDUCE_RANKS} ranks x 4 MiB int64, loss 0: "
+        f"{h.algorithm}, == numpy's sum; rounds {h.rounds}, messages "
+        f"{h.msgs_total}, {h.bytes_wire} bytes on the wire, {comm.now} "
+        f"ticks (= JAX package); {secs:.3f} s with one checkpoint at tick "
+        f"{mid}, {secs / comm.now * 1e3:.3f} ms a tick, "
+        f"{steps / comm.now:.3f} NIC steps a tick, "
+        f"{reads / steps:.2f} host reads a NIC step; stats "
+        f"{ {k: v for k, v in comm.fabric.stats().items() if k != 'links'} }")
+    return fabs, comm, snap, time.perf_counter() - t_phase
+
+
 def phase_serve(dev):
     """The serving path at full width, twice.  Returns what phase 6 times
     K4 on: the prompt's q/k/v at layers 0 (local) and 5 (global)."""
@@ -1228,7 +1447,8 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
                 plain_ms=plain, bound_ms=bound, bound_by="bytes",
                 library_ms=None, sector_bound_ms=sbound,
                 earlier_stage_ms=old_ms, host_ms=host,
-                earlier_stage_host_ms=old_host))
+                earlier_stage_host_ms=old_host,
+                fabric_launches=launches["match_fabric"]))
 
     # K2 at the ingest's shape: the one gather by the composed map (message
     # elements -> tokens) against the earlier two (message -> application
@@ -1397,6 +1617,21 @@ def main() -> int:
     if (launches["checksum"], launches["flash_attention"]) != (
             ck_calls, 2 * n_layers):
         raise AssertionError(f"path launches {launches}")
+    # the fabric and MPI path, counted on its own: K1 once per NIC step,
+    # and a node steps only on ticks its link delivered frames
+    k1.launches = 0
+    fabs, comm, snap, fabric_secs = phase_fabric(dev)
+    launches["match_fabric"] = k1.launches
+    steps, reads = _fabric_counts(fabs)
+    ticks = sum(f.now for f in fabs)
+    node_ticks = sum(f.now * len(f.nodes) for f in fabs)
+    log(f"[5c] path launches: K1 {launches['match_fabric']} (= {steps} NIC "
+        f"steps, the busy node-ticks of {node_ticks} node-ticks over "
+        f"{ticks} ticks on the card); {reads} host reads, "
+        f"{reads / steps:.2f} a busy node-tick; phase {fabric_secs:.1f} s")
+    if launches["match_fabric"] != steps or not 0 < steps < node_ticks:
+        raise AssertionError(f"fabric path: K1 {launches['match_fabric']}, "
+                             f"{steps} NIC steps, {node_ticks} node-ticks")
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
                             empty)
     # last, because the profiler's tracing may slow later launches: the
@@ -1405,6 +1640,8 @@ def main() -> int:
     nic, st, batch = replay
     engine, prompt = serve
     state = engine.prefill(prompt)
+    comm.restore(snap)          # the allreduce at its mid-run checkpoint
+    steps0 = sum(n.steps for n in comm.nodes)
     for what, fn in (("match_batch", lambda: matching.match_batch(
                           batch, nic.tables)),
                      ("earlier matching stage", lambda: match_batch_earlier(
@@ -1412,7 +1649,10 @@ def main() -> int:
                      ("SpinIngest call", lambda: spin(raw)),
                      ("NIC step", lambda: nic.step(st, batch)),
                      ("serving prefill", lambda: engine.prefill(prompt)),
-                     ("serving decode step", lambda: engine.step(state))):
+                     ("serving decode step", lambda: engine.step(state)),
+                     (f"allreduce tick {snap['fabric']['now']} ("
+                      f"{ALLREDUCE_RANKS} ranks)",
+                      lambda: comm.progress(1))):
         n_k, busy, wall, names, top = profile_step(fn)
         if what == "match_batch" and n_k != 1:
             raise AssertionError(f"match_batch ran {n_k} device kernels")
@@ -1421,6 +1661,8 @@ def main() -> int:
             f"{1 - busy / wall:.3f}, profiler on); commonest "
             f"{[(n[:60], c) for n, c in names]}; most device time "
             f"{[(n[:60], round(us, 1)) for n, us in top]}")
+    log(f"[7] the profiled allreduce tick ran "
+        f"{sum(n.steps for n in comm.nodes) - steps0} NIC steps")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

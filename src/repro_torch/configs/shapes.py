@@ -24,8 +24,8 @@ def train_batch_specs(cfg: ModelConfig, seq: int, batch: int,
     """Inputs for a training step: tokens and targets, (batch, seq) int32."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"shapes: family {cfg.family!r} is not ported yet (ROADMAP.md "
-            f"§1 item 11); only 'dense' is")
+            f"shapes: family {cfg.family!r} is not ported yet (ROADMAP.md, "
+            f"\"Modules to port\"); only 'dense' is")
     rng = rng or np.random.default_rng(0)
     tokens = _ints((batch, seq), cfg.vocab, rng)
     targets = _ints((batch, seq), cfg.vocab, rng)

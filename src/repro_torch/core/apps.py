@@ -150,12 +150,21 @@ MPI_MSGID_DTYPE_MASK = 0xFF
 MPI_MSGID_SLOT_MASK = 0xFFFF
 
 
+# How many times each MPI NIC context (and its device tables) has been
+# built this job.  A context build uploads the committed index maps to the
+# device, so regression tests assert this stays flat when a second
+# communicator reuses the same datatype tables (the repro_torch.mpi NIC
+# cache).
+MPI_CONTEXT_BUILDS = dict(eager=0, ddt=0)
+
+
 def make_mpi_eager_context(port: int, n_slots: int, slot_bytes: int,
                            host_base: int = 0) -> H.ExecutionContext:
     """Eager-protocol receive context: each message lands in a per-sender
     staging slot of the host window (slot index in the low msg_id bits);
     the host matches tags and copies out after the sender's FIN.  The NIC
     does reassembly + per-packet ACK."""
+    MPI_CONTEXT_BUILDS["eager"] += 1
 
     def eager_packet_handler(args: H.HandlerArgs, user) -> H.HandlerOut:
         out = H.none_out(args.n, args.pkt.device)
@@ -189,6 +198,7 @@ def make_mpi_ddt_context(maps, msg_lens, region_bytes: int, n_slots: int,
     ``maps``: (D, Mmax) int32, msg->mem byte map per datatype, -1-padded;
     ``msg_lens``: (D,) int32 serialized size per datatype.
     """
+    MPI_CONTEXT_BUILDS["ddt"] += 1
     dev = resolve_device(device)
     maps = torch.as_tensor(np.asarray(maps, np.int32), device=dev)
     msg_lens = torch.as_tensor(np.asarray(msg_lens, np.int32), device=dev)

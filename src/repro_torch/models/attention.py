@@ -7,7 +7,7 @@ computes the function ``blockwise_attention`` computes in the JAX package:
 causal attention, with a sliding window on ``local`` layers.  The
 single-token decode path is plain torch, as it is plain jnp there.  The
 ``cross`` kind, ``kv_len`` and ``q_offset`` belong to the encdec family,
-which is not ported yet (ROADMAP.md §1 item 11).
+which is not ported yet (ROADMAP.md, "Modules to port").
 
 Unlike the JAX functions, ``fill_kv_cache`` and ``attend_decode`` write
 the cache in place and return the same tensors.

@@ -36,8 +36,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     """``tree``: the JAX parameter tree with numpy float32 leaves.  Returns
     the port's parameters in ``cfg.dtype`` on ``device``."""
     if cfg.family != "dense" or tree["head_blocks"]:
-        raise NotImplementedError("params_from_numpy: only the dense family "
-                                  "is ported (ROADMAP.md §1 item 11)")
+        raise NotImplementedError(
+            "params_from_numpy: only the dense family is ported "
+            "(ROADMAP.md, \"Modules to port\")")
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.dtype)
     period = len(cfg.layer_pattern)

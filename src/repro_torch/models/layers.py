@@ -5,7 +5,7 @@ Parameters are held in ``nn.ParameterDict``s keyed as in the JAX package's
 parameter trees (``{"scale"}``, ``{"up", "gate", "down"}``, ...), so the
 functions here read them the same way.  ``apply_mrope`` and
 ``sinusoid_positions`` belong to the vlm and encdec families, which are not
-ported yet (ROADMAP.md §1 item 11).
+ported yet (ROADMAP.md, "Modules to port").
 """
 from __future__ import annotations
 

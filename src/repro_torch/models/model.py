@@ -15,8 +15,8 @@ Entry points:
 
 The cache is a list with one ``{"k", "v"}`` dict per layer; ``prefill``
 fills a fresh one and ``decode_step`` updates it in place.  The moe, ssm,
-hybrid, encdec and vlm families are not ported yet (ROADMAP.md §1 item 11),
-nor is ``loss_fn`` (the training slice).
+hybrid, encdec and vlm families are not ported yet (ROADMAP.md, "Modules to
+port"), nor is ``loss_fn`` (the training slice).
 """
 from __future__ import annotations
 
@@ -163,6 +163,6 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"build_model: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md §1 item 11: moe, ssm, hybrid, encdec and vlm "
-            f"come in later slices); only 'dense' is")
+            f"(ROADMAP.md, \"Modules to port\": moe, ssm, hybrid, encdec "
+            f"and vlm come in later slices); only 'dense' is")
     return Model(cfg)

@@ -1,7 +1,9 @@
 """The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher, both
 forms), K2 (DDT gather, both bodies), K3 (checksum) and K4 (flash
 attention) against their plain versions, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
-on the CPU, and the serving path's kernel launches.  Tolerance: exact (0)
+on the CPU, the serving path's kernel launches, and the fabric and MPI
+layer (threefry draws, a lossy SLMP fabric tick for tick, a rendezvous
+with NIC unpack) on the card against the CPU.  Tolerance: exact (0)
 for K1-K3; K2 compares bit patterns.  K4 holds two limits at once: the
 max abs error (bfloat16 0.06, the tolerance the JAX package holds its own
 kernel to; float32 1e-4) and the row error, each row's largest error over
@@ -521,3 +523,85 @@ def test_serving_path_launches_k4_per_layer(cuda):
     assert fa_ops.launches - before == cfg.n_layers
     ctoks, _ = ceng.generate(ceng.prefill({"tokens": tokens}), 8)
     assert torch.equal(toks.cpu(), ctoks)
+
+
+# ------------------------------------------------------- fabric and MPI
+def test_prng_draws_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.net import prng
+    for dev_key in (prng.PRNGKey(11, cuda), prng.split(
+            prng.PRNGKey(3, cuda), 8)):
+        cpu_key = dev_key.cpu()
+        assert torch.equal(prng.split(dev_key, 4).cpu(),
+                           prng.split(cpu_key, 4))
+        for size in (1, 64, 4096):
+            assert torch.equal(prng.uniform(dev_key, (size,)).cpu().view(
+                torch.int32), prng.uniform(cpu_key, (size,)).view(
+                torch.int32))
+            assert torch.equal(prng.randint(dev_key, (size,), 0, 3).cpu(),
+                               prng.randint(cpu_key, (size,), 0, 3))
+
+
+def _slmp_fabric(device):
+    from repro_torch import net
+    msg = np.random.default_rng(0).integers(0, 256, 20_000).astype(np.uint8)
+    cfg = slmp.SlmpSenderConfig(window=8, mtu_payload=1024, timeout=10,
+                                src_mac=pkt.node_mac(0),
+                                dst_mac=pkt.node_mac(1))
+    sender = net.SlmpSenderEngine(msg, msg_id=42, cfg=cfg)
+    a = net.Node("sender", pkt.node_mac(0), [apps.make_null_context()],
+                 engines=[sender], batch=16, device=device)
+    b = net.Node("recv", pkt.node_mac(1), [slmp.make_slmp_context()],
+                 batch=16, host_bytes=1 << 17, device=device)
+    fab = net.Fabric([a, b], link_cfg=net.LinkConfig(loss=0.1, latency=2,
+                                                     jitter=2),
+                     seed=7, device=device)
+    return fab, sender, b, msg
+
+
+def test_lossy_slmp_fabric_on_the_card_equals_the_cpu(cuda):
+    """Loss 0.1, jitter 2: tick for tick, the card's link states equal the
+    CPU's; the K1 launches are the busy node-ticks."""
+    gfab, gsender, gb, msg = _slmp_fabric(cuda)
+    cfab, csender, cb, _ = _slmp_fabric("cpu")
+    assert gfab._stack.data.device.type == "cuda"
+    before = match_ops.launches
+    for _ in range(3000):
+        gt, ct = gfab.run(max_ticks=1), cfab.run(max_ticks=1)
+        assert gt == ct
+        if gt == 0:
+            break
+        for a, b in zip(gfab._per_link_states(), cfab._per_link_states()):
+            ga, cb_ = a.to_numpy(), b.to_numpy()
+            for k in ga:
+                np.testing.assert_array_equal(ga[k], cb_[k], err_msg=k)
+    assert gfab.now == cfab.now and gfab.stats() == cfab.stats()
+    assert gsender.sender.retransmits == csender.sender.retransmits > 0
+    np.testing.assert_array_equal(gb.read_host(0, len(msg)), msg)
+    assert match_ops.launches - before == sum(n.steps for n in gfab.nodes)
+    assert gb.state.l2.device.type == "cuda"
+
+
+def test_rendezvous_nic_unpack_on_the_card_equals_the_cpu(cuda):
+    from repro_torch import mpi, net
+    outs = []
+    for device in (cuda, "cpu"):
+        reg = mpi.DatatypeRegistry()
+        cid = reg.register(ddt.complex_ddt(), count=64, name="complex")
+        comm = mpi.Communicator(2, registry=reg, seed=0, device=device,
+                                link_cfg=net.LinkConfig(loss=0.05, latency=2,
+                                                        jitter=2))
+        c = reg.committed(cid)
+        mem = np.random.default_rng(1).integers(0, 256, c.mem_bytes).astype(
+            np.uint8)
+        buf = np.zeros(c.mem_bytes, np.uint8)
+        r = comm.irecv(1, buf, source=0, tag=1)
+        s = comm.isend(0, 1, mem, tag=1, datatype=cid)
+        comm.wait(r, s)
+        np.testing.assert_array_equal(
+            buf, ddt.unpack_np(c, ddt.pack_np(c, mem),
+                               np.zeros(c.mem_bytes, np.uint8)))
+        outs.append((buf, comm.now, comm.stats(), comm.link_stats()))
+        assert comm.nic.device.type == torch.device(device).type
+    (gbuf, *gmeta), (cbuf, *cmeta) = outs
+    np.testing.assert_array_equal(gbuf, cbuf)
+    assert gmeta == cmeta
