@@ -8,13 +8,15 @@ CUDA toolkit (nvcc) and PyTorch built for CUDA; it imports nothing of JAX
 and nothing of the JAX package ``repro``.  Phases:
 
   1. the card's name and power limit; build every kernel from the
-     checkout's sources (one nvcc per source, all started together, and
-     an empty kernel for the launch floor); K1 and K2 must compile with
+     checkout's sources (one nvcc per library, all started together: the
+     kernels, K4b's planted-fault variant, and an empty kernel for the
+     launch floor); K1 and K2 must compile with
      no stack frame (K1's register array stays in registers); K3 must
      compile with no spills; K4 must be the warp-specialised Hopper
      kernel: its ptxas report shows no spills and no ignored
      ``setmaxnreg`` (C7508), and its SASS (``cuobjdump -sass``) holds
-     HGMMA and UTMALDG instructions;
+     HGMMA and UTMALDG instructions; K4b (K4's backward) must compile with
+     no spills;
   2. K1 (matcher) against its plain PyTorch versions on the card, bit for
      bit, in both forms, the fused first-match stage (with a fifth of the
      lanes not valid) and the (N, C) form: built-in and random rule
@@ -76,6 +78,26 @@ and nothing of the JAX package ``repro``.  Phases:
      once per NIC step, and nodes whose link delivered nothing must skip
      the step.  Prints wall time, ms a tick, NIC steps a tick and host
      reads (synchronisations) a NIC step;
+  5d. the training path at gemma3-1b's full width through the port's
+     ``launch/train.py`` (--spin-ingest, batch 4, sequence 1,024, 8 steps,
+     lr 3e-3 and the launcher's schedule, weights from seed 0): the losses
+     must be finite, and K1 and K2 must launch once per ingest call, K4
+     twice and K4b once per layer and step (see K4_PER_LAYER_STEP).  Every
+     batch that the launcher's ``SpinIngest`` delivered must equal the
+     corpus's.  K4 on a global and a local layer's own q/k/v from the run
+     agrees with its plain version, and K4's planted faults fail there.
+     K4b on those layers' own q/k/v/o/dO, on qwen3-1.7b's GQA shape at
+     head_dim 128 and in float32 agrees with its plain version (K4B_REL,
+     K4B_ROW_TOL), and planted faults (key tile 1 or the last key tile
+     dropped from the dK/dV loop, Delta left out) fail that check on the
+     two layers and in float32.  Then
+     ``run_with_restarts`` with a failure planted before step 3 must resume
+     from the step-2 checkpoint (gemma3-1b cut to 6 layers and vocab
+     16,384; the checkpoints are deleted after).  Prints ms a step,
+     tokens/s and the overlap ratio R, and per step the Python collector's
+     time and the caching allocator's device allocations, frees and
+     retries.  Last, train steps under remat "dots" (the config's) and
+     "none" in turns, host issue time and step time;
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
@@ -97,13 +119,20 @@ and nothing of the JAX package ``repro``.  Phases:
      262,144 random frames, device time and the host's cost to issue a
      call, against its bound in live bytes and in the 32-byte sectors the
      live ranges touch.  K1's entry also carries its launches on the
-     fabric path (``fabric_launches``);
+     fabric path (``fabric_launches``).  K4b on phase 5d's own inputs of a
+     global and a local layer against its plain version and SDPA's
+     backward, with its bound (10 D operations per live pair over the
+     bf16 peak); K1, K2 and K4 carry their launches on the training path
+     (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
      one ``SpinIngest`` call, one NIC step, one serving prefill, one
-     decode step and one tick of the 8-rank allreduce (restored from a
-     checkpoint taken mid-run in 5c) under torch.profiler: kernels per
+     decode step, one tick of the 8-rank allreduce (restored from a
+     checkpoint taken mid-run in 5c) and one gemma3-1b train step under
+     torch.profiler: kernels per
      call, device busy time, the idle share it implies and the kernels
-     with the most device time.
+     with the most device time; for the train step also the host's time
+     in CUDA runtime calls and in aten operators (self time), and the
+     operators with the most of it.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -167,6 +196,44 @@ ALLREDUCE_RANKS = 8
 ALLREDUCE_BYTES = 4 << 20
 JAX_ALLREDUCE = dict(algorithm="allreduce_rab", rounds=6, msgs_total=896,
                      bytes_wire=58_720_256, ticks=468)
+# Phase 5d.  Training at gemma3-1b's full width through the port's
+# launch/train.py with --spin-ingest and the launcher's defaults for lr
+# (3e-3) and schedule: batch 4, sequence 1,024 (4,096 tokens a step).  The
+# spin-ingest loop takes its first batch before the loop, so TRAIN_FEEDS
+# ingest calls feed TRAIN_FEEDS - 1 steps.  Under remat "dots" every layer
+# launches K4 twice a step (its forward, and the recompute of the block
+# before the backward: attention's output is not one of the saved matrix
+# products) and K4b once.
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_FEEDS = 9
+K4_PER_LAYER_STEP = 2
+K4B_PER_LAYER_STEP = 1
+# the restart check: gemma3-1b cut to one period (6 layers) and a vocab of
+# 16,384, so that a checkpoint of params and moments is about 1.8 GB
+RESTART_LAYERS = 6
+RESTART_VOCAB = 16384
+# the caching allocator's counters printed per train step
+ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+# K4b against its plain version: each of dq, dk, dv within a max abs error
+# of K4B_REL times its largest |value| and a row error (``ref.row_error``
+# with each row's RMS floored at K4B_ROW_FLOOR times the tensor's: a row of
+# dQ can be 0 but for rounding, as query 0's is) of K4B_ROW_TOL.  bfloat16's
+# floor is low, so that the small dK/dV rows of the last key tiles, which
+# few queries see, are judged by their own RMS.  float32's limit is so
+# tight that such a row dropped reads far beyond it at a floor of 1, while
+# a lower floor would count the rounding noise of dQ's row 0 (~1e-5 of the
+# tensor's RMS) as a fault.  A sound bfloat16 kernel
+# differs by the rounding of its outputs (2**-8 of a value of up to ~4 RMS),
+# by rounding P and dS to bfloat16 before their products (as the forward
+# rounds P; the row limit is K4's, for the same reason) and by float32 sums
+# in another order: a few hundredths.  A key tile dropped from the dK/dV
+# loop leaves whole rows at 0 (row error 1 or more), and Delta left out
+# moves every dS.
+K4B_REL = {"bfloat16": 2e-2, "float32": 1e-5}
+K4B_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+K4B_ROW_FLOOR = {"bfloat16": 0.05, "float32": 1.0}
 
 
 def log(*a):
@@ -327,7 +394,7 @@ def phase_build():
     if probe.returncode:
         raise AssertionError(f"nvcc failed for the empty kernel:\n{out}")
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"({len(build.SOURCES)} sources and an empty kernel, parallel "
+        f"({len(build.SOURCES)} libraries and an empty kernel, parallel "
         f"nvcc)")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
@@ -343,6 +410,7 @@ def phase_build():
             f"{sass_sizes(build, name)}")
     check_k3_build(build)
     check_k4_build(build)
+    check_k4b_build(build)
     empty = ctypes.CDLL(str(lib)).repro_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     empty.restype = ctypes.c_int
@@ -424,6 +492,25 @@ def check_k4_build(build):
         f", register moves {setmax}")
     if not (counts["HGMMA"] and counts["UTMALDG"]):
         raise AssertionError(f"K4: no HGMMA or UTMALDG in the SASS {counts}")
+
+
+def check_k4b_build(build):
+    """K4b must compile with no spills (its dQ, dK and dV sums live in
+    registers).  Prints registers per kernel and shared memory."""
+    import re
+    text = build.build_logs.get("flash_attention_bwd")
+    if text is None:
+        raise AssertionError("K4b: no ptxas report (delete src/repro_torch/"
+                             "kernels/_build and run again)")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill "
+                                         r"(?:stores|loads)", text)]
+    regs = re.findall(r"Used (\d+) registers", text)
+    log(f"[1] K4b ptxas: {len(regs)} kernels (dQ and dK/dV for 3 head_dims "
+        f"x 2 dtypes, and the bfloat16 partial-sum reduction), registers "
+        f"{regs}, spill bytes {sum(spills)}")
+    if len(regs) != 13 or not spills or any(spills):
+        raise AssertionError(f"K4b: ptxas reports {len(regs)} kernels, "
+                             f"spills {spills}")
 
 
 def phase_k1(dev):
@@ -702,12 +789,14 @@ def fig10_stream(kind, dev, seed=0):
     return nic, st, c, msgs, egress, secs, len(frames)
 
 
-def profile_step(step_fn):
+def profile_step(step_fn, host=False):
     """One call of ``step_fn`` under torch.profiler.  Returns (device
     kernels, device busy us as the union of kernel intervals, wall us on
     the host clock, the three commonest kernel names, the three kernel
     names with the most device time and their us).  The profiler slows
-    the host, so the idle share it implies is an upper estimate."""
+    the host, so the idle share it implies is an upper estimate.  With
+    ``host``, also logs the host's self time in CUDA runtime calls and in
+    aten operators, and the operators with the most of it."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -735,6 +824,20 @@ def profile_step(step_fn):
     dev_us = collections.Counter()
     for e in evs:
         dev_us[e.name] += e.time_range.end - e.time_range.start
+    if host:
+        avg = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU]
+        runtime = sorted((e for e in avg if e.key.startswith("cuda")),
+                         key=lambda e: -e.count)
+        ops = sorted((e for e in avg if e.key.startswith("aten::")),
+                     key=lambda e: -e.self_cpu_time_total)
+        log(f"[7]   host, self time: CUDA runtime calls "
+            f"{sum(e.self_cpu_time_total for e in runtime) / 1e3:.3f} ms "
+            f"({sum(e.count for e in runtime)} calls, most "
+            f"{[(e.key, e.count) for e in runtime[:3]]}); aten operators "
+            f"{sum(e.self_cpu_time_total for e in ops) / 1e3:.3f} ms "
+            f"({sum(e.count for e in ops)} calls) of {wall / 1e3:.3f} ms "
+            f"wall; most: {[(e.key, e.count, round(e.self_cpu_time_total / 1e3, 3)) for e in ops[:6]]}")
     return len(spans), busy, wall, names, dev_us.most_common(3)
 
 
@@ -1194,6 +1297,324 @@ def phase_serve(dev):
     return captured, errs, launched, (engine, batch)
 
 
+def k4b_errors(got, want):
+    """(max abs error over the largest |value|, row error) of the worst of
+    dq, dk, dv, and whether both are within the limits."""
+    from repro_torch.kernels.flash_attention import ref
+    dt = str(want[0].dtype).split(".")[-1]
+    rel = row = 0.0
+    for a, w in zip(got, want):
+        top = w.float().abs().max().item()
+        rel = max(rel, (a.float() - w.float()).abs().max().item()
+                  / max(top, 1e-30))
+        row = max(row, ref.row_error(a, w, floor=K4B_ROW_FLOOR[dt]))
+    return rel, row, rel <= K4B_REL[dt] and row <= K4B_ROW_TOL[dt]
+
+
+def k4b_check(tag, q, k, v, o, do, causal, window, faults=False):
+    """K4b against its plain version on the same card tensors; with
+    ``faults``, the kernel with each planted fault must fail the check.
+    Returns the largest max abs error of dq, dk, dv."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                  window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    rel, row, ok = k4b_errors(got, want)
+    err = max((a.float() - w.float()).abs().max().item()
+              for a, w in zip(got, want))
+    dt = str(q.dtype).split(".")[-1]
+    log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal="
+        f"{causal} window={window}: max abs err {err:.3e} ({rel:.3e} of "
+        f"the largest value, limit {K4B_REL[dt]}), row error {row:.3e} "
+        f"(limit {K4B_ROW_TOL[dt]})")
+    if not ok:
+        raise AssertionError(f"K4b errors {rel}, {row} beyond the limits")
+    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                    window=window)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K4b is not deterministic")
+    if faults:
+        for fault, tile, name in (
+                (1, 1, "key tile 1 dropped from the dK/dV loop"),
+                (1, -1, "the last key tile dropped from the dK/dV loop"),
+                (2, 0, "Delta left out of dS")):
+            bad = ops.flash_attention_bwd_planted(
+                q, k, v, o, do, causal=causal, window=window, fault=fault,
+                tile=tile)
+            rel, row, ok = k4b_errors(bad, want)
+            log(f"{tag} planted fault ({name}): {rel:.3e} of the largest "
+                f"value, row error {row:.3e}: "
+                f"{'PASSES' if ok else 'fails'} the check")
+            if ok:
+                raise AssertionError(f"K4b check passes a planted fault: "
+                                     f"{name}")
+    return err
+
+
+def phase_train(dev):
+    """Training at full width through launch/train.py (phase 5d).  Returns
+    the layers' own K4b inputs (one global, one local), the launches of
+    K1, K2, K4 and K4b, the largest K4b error on them, and a function that
+    runs one more train step (remat "dots"), for phase 7."""
+    import gc
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.ddt import ops as k2
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.kernels.matcher import ops as k1
+    from repro_torch.launch import train
+    cfg = configs.get_config(TRAIN_ARCH)
+    steps = TRAIN_FEEDS - 1
+    captured, delivered, marks = {}, [], []
+    plain_bwd = k4.flash_attention_bwd
+    plain_ingest = train.datalib.SpinIngest
+    gc_clock = [0.0, 0.0, 0]     # start of a collection, ms in all, gen 2
+
+    def recording(q, k, v, o, do, **kw):     # the layers' own K4b calls
+        kind = "local" if kw["window"] else "global"
+        if kind not in captured:
+            captured[kind] = (q, k, v, o, do, kw)
+        return plain_bwd(q, k, v, o, do, **kw)
+
+    class RecordingIngest(plain_ingest):     # the launcher's own ingest
+        def __call__(self, raw):
+            st = torch.cuda.memory_stats()
+            marks.append((time.perf_counter(), gc_clock[1], gc_clock[2],
+                          *(st.get(key, -1) for key in ALLOC_KEYS)))
+            out = super().__call__(raw)
+            delivered.append((self.pl, out))
+            return out
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_clock[0] = time.perf_counter()
+        else:
+            gc_clock[1] += (time.perf_counter() - gc_clock[0]) * 1e3
+            gc_clock[2] += info["generation"] == 2
+
+    k1.launches = k2.launches = k4.launches = k4.bwd_launches = 0
+    k4.flash_attention_bwd = recording
+    train.datalib.SpinIngest = RecordingIngest
+    gc.callbacks.append(on_gc)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        res = train.main(["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
+                          "--seq", str(TRAIN_SEQ), "--steps",
+                          str(TRAIN_FEEDS), "--spin-ingest", "--ckpt-every",
+                          "0", "--seed", "0", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        k4.flash_attention_bwd = plain_bwd
+        train.datalib.SpinIngest = plain_ingest
+        gc.callbacks.remove(on_gc)
+    launches = {"match": k1.launches, "ddt_gather": k2.launches,
+                "flash_attention": k4.launches,
+                "flash_attention_bwd": k4.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in res["history"]]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: losses {losses}")
+    want = {"match": TRAIN_FEEDS, "ddt_gather": TRAIN_FEEDS,
+            "flash_attention": K4_PER_LAYER_STEP * cfg.n_layers * steps,
+            "flash_attention_bwd": K4B_PER_LAYER_STEP * cfg.n_layers * steps}
+    log(f"[5d] launches: K1 {launches['match']}, K2 "
+        f"{launches['ddt_gather']} (= {TRAIN_FEEDS} ingest calls), K4 "
+        f"{launches['flash_attention']} (= {K4_PER_LAYER_STEP} x "
+        f"{cfg.n_layers} layers x {steps} steps: forward and remat "
+        f"recompute), K4b {launches['flash_attention_bwd']} (= "
+        f"{K4B_PER_LAYER_STEP} x {cfg.n_layers} x {steps})")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, want {want}")
+    if len(delivered) != TRAIN_FEEDS:
+        raise AssertionError(f"train: {len(delivered)} ingest calls")
+    for i, (pipe, out) in enumerate(delivered):
+        corpus = pipe.corpus.batch(i, TRAIN_BATCH, TRAIN_SEQ)
+        if not (np.array_equal(out["tokens"].cpu().numpy(), corpus[:, :-1])
+                and np.array_equal(out["targets"].cpu().numpy(),
+                                   corpus[:, 1:])):
+            raise AssertionError(f"train: SpinIngest batch {i} is not the "
+                                 f"corpus's")
+    log(f"[5d] SpinIngest delivered {len(delivered)} batches of "
+        f"{tuple(delivered[0][1]['tokens'].shape)} tokens; each equals the "
+        f"corpus's batch (tokens and targets)")
+    del delivered
+    secs = res["step_secs"]
+    warm = statistics.median(secs[1:])
+    log(f"[5d] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}, remat "
+        f"{cfg.remat}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"--spin-ingest, {steps} steps in {wall:.2f} s (with set-up): "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[5d] step (host clock, issue to both syncs) "
+        f"{[round(x * 1e3, 3) for x in secs]} ms; median after the first "
+        f"{warm * 1e3:.3f} ms, {TRAIN_BATCH * TRAIN_SEQ / warm:.0f} "
+        f"tokens/s; overlap R = {res['overlap_ratio']:.4f} (T_MM "
+        f"{res['t_train_s'] * 1e3:.3f} ms, T_Poll {res['t_poll_s'] * 1e3:.3f}"
+        f" ms over the run); peak device memory {peak:.2f} GB")
+    # from one ingest call to the next: the wait on step s - 1 and the
+    # issue of step s (the launcher calls the ingest right after issuing)
+    gaps = [[(b[0] - a[0]) * 1e3] + [b[j] - a[j] for j in range(1, len(a))]
+            for a, b in zip(marks, marks[1:])]
+    log(f"[5d] per step, from one ingest call to the next (ms; the "
+        f"collector's ms and gen-2 collections; the allocator's "
+        f"{', '.join(ALLOC_KEYS)}): "
+        f"{[[round(x, 3) for x in g] for g in gaps]}")
+    errs = []
+    with torch.no_grad():
+        for kind in ("global", "local"):
+            q, k, v, o, do, kw = captured[kind]
+            tag = f"[5d] K4, a {kind} layer's own q/k/v:"
+            _, _, want_o = k4_check(tag, q, k, v, **kw)
+            k4_planted_faults(tag, q, k, v, kw["window"], want_o)
+            errs.append(k4b_check(f"[5d] K4b, a {kind} layer's own "
+                                  f"inputs:", q, k, v, o, do, faults=True,
+                                  **kw))
+    bf, f32 = torch.bfloat16, torch.float32
+    for i, (b, s, h, kv, d, dt, w) in enumerate((
+            (2, 1024, 16, 8, 128, bf, 0),     # qwen3-1.7b's GQA, head_dim 128
+            (2, 777, 4, 2, 64, f32, 100))):   # float32, ragged, window
+        q, k, v = k4_inputs(dev, b, s, s, h, kv, d, dt, seed=40 + i)
+        do = k4_inputs(dev, b, s, s, h, kv, d, dt, seed=50 + i)[0]
+        o = k4.flash_attention(q, k, v, causal=True, window=w)
+        k4b_check("[5d] K4b", q, k, v, o, do, causal=True, window=w,
+                  faults=dt == f32)
+    train_restarts(dev)
+    runs = train_remat_steps(dev)
+    return captured, launches, max(errs), runs["dots"]
+
+
+def train_remat_steps(dev):
+    """gemma3-1b train steps at phase 5d's width and batch, under remat
+    "dots" (the config's) and "none", on one set of params (seed 1), run
+    in turns: host issue time and step time of each.  Returns {remat: a
+    function that runs one more step}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = configs.get_config(TRAIN_ARCH)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(1))
+    ost = [opt.init(params.tree())]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             shapes.train_batch_specs(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                      rng=np.random.default_rng(1)).items()}
+    runs = {}
+    for remat in ("dots", "none"):
+        step = Trainer(build_model(dataclasses.replace(cfg, remat=remat)),
+                       opt.OptConfig(lr=3e-3, warmup_steps=1,
+                                     total_steps=20),
+                       TrainerConfig()).build_step()
+
+        def run(step=step):
+            _, ost[0], m = step(params, ost[0], batch)
+            return m["loss"]
+        runs[remat] = run
+    times = {r: ([], []) for r in runs}
+    for r in runs:                       # warm-up, not timed
+        runs[r]()
+    torch.cuda.synchronize()
+    peak = dict.fromkeys(runs, 0.0)
+    for r in ("dots", "none", "none", "dots") * 2:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[r]()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        times[r][0].append((t1 - t0) * 1e3)
+        times[r][1].append((time.perf_counter() - t0) * 1e3)
+        peak[r] = max(peak[r], torch.cuda.max_memory_allocated() / 1e9)
+    for r, (issue, total) in times.items():
+        log(f"[5d] remat {r!r}: host issue {statistics.median(issue):.3f} "
+            f"ms, step {statistics.median(total):.3f} ms (medians of "
+            f"{len(total)} steps in turns; issue {[round(x, 3) for x in issue]}"
+            f", step {[round(x, 3) for x in total]}); peak device memory "
+            f"{peak[r]:.2f} GB")
+    return runs
+
+
+def train_restarts(dev):
+    """run_with_restarts with a planted failure: the second attempt resumes
+    from the first's checkpoint (gemma3-1b cut to RESTART_LAYERS layers
+    and a vocab of RESTART_VOCAB; the checkpoints are deleted after)."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import faults
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import data as tdata
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=RESTART_LAYERS, vocab=RESTART_VOCAB)
+    model = build_model(cfg)
+    corpus = tdata.SyntheticCorpus(cfg.vocab, seed=0)
+    d = tempfile.mkdtemp(prefix=".ckpt-", dir=ROOT)
+    armed, first_steps = [True], []
+    try:
+        def make_state():
+            p = model.init(torch.Generator(device=dev).manual_seed(0))
+            return p, opt.init(p.tree())
+
+        def run(state, attempt):
+            params, ost = state
+            tr = Trainer(model, opt.OptConfig(lr=3e-3, warmup_steps=1,
+                                              total_steps=8),
+                         TrainerConfig(steps=3, log_every=1, ckpt_every=2,
+                                       ckpt_dir=d))
+
+            def batches():
+                for i in range(3):
+                    if armed[0] and i == 2:
+                        armed[0] = False
+                        raise RuntimeError("planted failure before step 3")
+                    toks = torch.as_tensor(corpus.batch(
+                        i, TRAIN_BATCH, TRAIN_SEQ), device=dev)
+                    yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+            out = tr.fit(params, ost, batches(), resume=True)
+            first_steps.append(out[2][0]["step"])
+            return out
+
+        t0 = time.perf_counter()
+        result, report = faults.run_with_restarts(make_state, run,
+                                                  max_restarts=2)
+        secs = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file())
+        steps = sorted(p.name for p in Path(d).glob("step-*"))
+        losses = [h["loss"] for h in result[2]] if result else []
+        log(f"[5d] restarts ({cfg.name} cut to {cfg.n_layers} layers and "
+            f"vocab {cfg.vocab}): {report.restarts} restart(s), errors "
+            f"{report.errors}; the second attempt resumed at step "
+            f"{first_steps[0] - 1} and ran steps {first_steps[0]}-"
+            f"{result[2][-1]['step'] if result else '?'} (losses "
+            f"{[round(x, 4) for x in losses]}); checkpoints {steps}, "
+            f"{on_disk / 1e9:.2f} GB on disk, {secs:.1f} s")
+        if not (report.succeeded and report.restarts == 1
+                and report.errors == ["RuntimeError: planted failure "
+                                      "before step 3"]
+                and first_steps == [3]
+                and ckpt.latest_step(d) == 4
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"restarts: {report}, {first_steps}, "
+                                 f"{steps}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def match_batch_earlier(batch, tables):
     """The matching stage as it ran before the first-match form: the
     (N, C) kernel, then seven PyTorch ops (mask by valid, any, cast,
@@ -1362,9 +1783,10 @@ def time_k3(dev, launches, reqs):
     return entry
 
 
-def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
-    """Time the launch floor and K1-K4 at their paths' shapes.  Returns
-    the entries of the ``kernels`` line."""
+def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
+                  captured_bwd, k4b_err):
+    """Time the launch floor, K1-K4 and K4b at their paths' shapes.
+    Returns the entries of the ``kernels`` line."""
     import numpy as np
     import torch
     from repro_torch.core import ddt, matching, packet as pkt
@@ -1448,7 +1870,8 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
                 library_ms=None, sector_bound_ms=sbound,
                 earlier_stage_ms=old_ms, host_ms=host,
                 earlier_stage_host_ms=old_host,
-                fabric_launches=launches["match_fabric"]))
+                fabric_launches=launches["match_fabric"],
+                train_launches=launches["train"]["match"]))
 
     # K2 at the ingest's shape: the one gather by the composed map (message
     # elements -> tokens) against the earlier two (message -> application
@@ -1486,7 +1909,8 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
         replaces="src/repro/kernels/ddt/ddt.py:71",
         launches=launches["ddt_gather"], max_abs_err=0, ms=ms,
         plain_ms=plain, bound_ms=bound, bound_by="bytes", library_ms=lib,
-        scalar_body_ms=scalar, earlier_two_gathers_ms=old_ms))
+        scalar_body_ms=scalar, earlier_two_gathers_ms=old_ms,
+        train_launches=launches["train"]["ddt_gather"]))
     # a Fig 9 complex datatype at count 32,768 (a message of about 4 MiB),
     # pack and unpack maps, and a 4 MiB int32 permutation
     c = ddt.commit(ddt.complex_ddt(), count=32768)
@@ -1520,6 +1944,7 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
         source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:100",
         launches=launches["flash_attention"],
+        train_launches=launches["train"]["flash_attention"],
         max_abs_err=max(k4_errs.values()))
     for layer in sorted(captured, reverse=True):          # global first
         q, k, v, kw, _ = captured[layer]
@@ -1569,6 +1994,91 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty):
             k4_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
                             bound_by=by, library_ms=lib)
     out.append(k4_entry)
+
+    # K4b on the training run's own inputs of a global and a local layer;
+    # SDPA's backward (torch.autograd.grad of scaled_dot_product_attention
+    # on the same tensors) as the yardstick.  Operations: 10 D per live
+    # (query, key) pair (S, dP, dV, dQ, dK; the kernel's lse pass adds 2 D,
+    # which the bound does not count); bytes: q, k, v, o, dO read, dq, dk,
+    # dv written.
+    k4b_entry = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/"
+               "flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:94",
+        launches=launches["train"]["flash_attention_bwd"],
+        max_abs_err=k4b_err)
+    for kind in ("global", "local"):
+        q, k, v, o, do, kw = captured_bwd[kind]
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        w = kw["window"]
+        i = torch.arange(sq)
+        hi = i.clamp(max=sk - 1)
+        lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
+        pairs = int((hi - lo + 1).clamp(min=0).sum())
+        n_ops = 10 * d * pairs * b * h
+        nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
+        bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        by = "operations" if n_ops / BF16_OPS_PER_S > \
+            nbytes / HBM_BYTES_PER_S else "bytes"
+        ms, host = time_ms(lambda: k4.flash_attention_bwd(q, k, v, o, do,
+                                                          **kw))
+        plain, _ = time_ms(lambda: k4ref.flash_attention_bwd_ref(
+            q, k, v, o, do, **kw), runs=5, per_run=4)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        if w:
+            ii = torch.arange(sq, device=dev)[:, None]
+            jj = torch.arange(sk, device=dev)[None, :]
+            sdpa = dict(attn_mask=(jj <= ii) & (jj > ii - w),
+                        enable_gqa=True)
+        else:
+            sdpa = dict(is_causal=True, enable_gqa=True)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+        dot = do.transpose(1, 2)
+        lib, _ = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                        retain_graph=True)
+        lib_err = max((a.transpose(1, 2).float() - g.float()).abs().max()
+                      .item() for a, g in zip(lib_grads, k4.flash_attention_bwd(
+                          q, k, v, o, do, **kw)))
+        log(f"[6] K4b {kind} layer ({'window %d' % w if w else 'causal'}) "
+            f"q{tuple(q.shape)} k{tuple(k.shape)}: device {ms * 1e3:.3f} us "
+            f"(issued in {host * 1e3:.2f} us), plain device "
+            f"{plain * 1e3:.3f} us, SDPA backward {lib * 1e3:.3f} us "
+            f"(its gradients differ from K4b's by {lib_err:.3e}), bound "
+            f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
+            f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{bound / ms * 100:.2f} % of the bound)")
+        if w:
+            k4b_entry.update(local_ms=ms, local_plain_ms=plain,
+                             local_bound_ms=bound, local_library_ms=lib)
+        else:
+            k4b_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, library_ms=lib)
+    # K4b's kernels one by one, under the profiler (after every timing)
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for kind in ("global", "local"):
+        q, k, v, o, do, kw = captured_bwd[kind]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k4.flash_attention_bwd(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                m = re.search(r"(\w+_kernel)(<[^>]*>)?", e.name)
+                key = m.group(1) + (m.group(2) or "") if m else e.name[:40]
+                parts[key] = round(parts.get(key, 0.0) + e.time_range.end
+                                   - e.time_range.start, 1)
+        log(f"[6] K4b {kind} layer, its kernels under the profiler (us): "
+            f"{parts}")
+        k4b_entry["local_parts_us" if kind == "local" else "parts_us"] = \
+            parts
+    out.append(k4b_entry)
     return out
 
 
@@ -1632,8 +2142,11 @@ def main() -> int:
     if launches["match_fabric"] != steps or not 0 < steps < node_ticks:
         raise AssertionError(f"fabric path: K1 {launches['match_fabric']}, "
                              f"{steps} NIC steps, {node_ticks} node-ticks")
+    # the training path, counted on its own
+    captured_bwd, launches["train"], k4b_err, train_step = phase_train(dev)
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
-                            empty)
+                            empty, captured_bwd, k4b_err)
+    del captured_bwd
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the
     # complex stream's first batch, replayed), a prefill and a decode step
@@ -1650,10 +2163,13 @@ def main() -> int:
                      ("NIC step", lambda: nic.step(st, batch)),
                      ("serving prefill", lambda: engine.prefill(prompt)),
                      ("serving decode step", lambda: engine.step(state)),
+                     (f"train step ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+                      f"{TRAIN_SEQ} tokens)", train_step),
                      (f"allreduce tick {snap['fabric']['now']} ("
                       f"{ALLREDUCE_RANKS} ranks)",
                       lambda: comm.progress(1))):
-        n_k, busy, wall, names, top = profile_step(fn)
+        n_k, busy, wall, names, top = profile_step(
+            fn, host=what.startswith("train step"))
         if what == "match_batch" and n_k != 1:
             raise AssertionError(f"match_batch ran {n_k} device kernels")
         log(f"[7] profiled {what}: {n_k} device kernels, device busy "

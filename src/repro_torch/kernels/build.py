@@ -6,8 +6,11 @@ interface and is compiled on its own into a shared library for
 ``.gitignore``).  A library's file name carries a hash of its source and
 flags, so an edited source is rebuilt; the compiler's output is kept
 beside it (``.log``), so a later process that finds the library built
-still has its ptxas report.  ``build_all`` starts one ``nvcc`` per source
-at once, which is what ``chip_smoke.py`` calls up front.
+still has its ptxas report.  ``build_all`` starts one ``nvcc`` per library
+at once, which is what ``chip_smoke.py`` calls up front.  A library in
+``DEFINES`` is a variant of another's source built with extra macros:
+``flash_attention_bwd_faults`` is K4b with the planted faults that the
+checks must catch, kept out of the shipped kernel.
 
 Nothing here runs when the package is imported.
 """
@@ -29,7 +32,12 @@ SOURCES = {
     "ddt": KERNELS_DIR / "ddt" / "ddt_gather.cu",
     "checksum": KERNELS_DIR / "checksum" / "checksum.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "flash_attention.cu",
+    "flash_attention_bwd": (KERNELS_DIR / "flash_attention"
+                            / "flash_attention_bwd.cu"),
+    "flash_attention_bwd_faults": (KERNELS_DIR / "flash_attention"
+                                   / "flash_attention_bwd.cu"),
 }
+DEFINES = {"flash_attention_bwd_faults": ["-DREPRO_K4B_PLANTED_FAULTS"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,14 +56,15 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + DEFINES.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
     out = _lib_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES.get(name, []), "-o", str(tmp),
+           str(SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -72,7 +81,7 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
 
 def build_all(names: List[str] = None) -> None:
     """Compile every kernel that has no up-to-date library, one ``nvcc``
-    per source, all started together."""
+    per library, all started together."""
     names = list(SOURCES) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with _lock:

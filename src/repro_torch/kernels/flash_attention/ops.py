@@ -1,5 +1,6 @@
-"""Public wrapper of the flash-attention kernel (K4): forward attention in
-the model's layout, with GQA, causal and sliding-window masks.
+"""Public wrappers of the flash-attention kernels: the forward (K4) and its
+backward (K4b), in the model's layout, with GQA, causal and sliding-window
+masks.
 
 ``flash_attention`` dispatches on the device of ``q``: a CPU tensor takes
 the plain version in ``ref.py``; a CUDA tensor launches
@@ -8,7 +9,14 @@ raises.  The kernel reads q/k/v through their strides, so the caller's
 (B, S, heads, D) tensors are used as they are and K/V are never repeated
 across a GQA group; in bfloat16 it reads them through TMA tensor maps,
 which the launcher builds from the same pointers and strides at each
-call.  ``launches`` counts the kernel launches.
+call.  When autograd needs its gradient, the call goes through a
+``torch.autograd.Function`` that saves q, k, v and the output; its
+backward is ``flash_attention_bwd``, which launches
+``flash_attention_bwd.cu`` on CUDA tensors (dQ with lse and Delta, then
+dK and dV) and takes ``ref.flash_attention_bwd_ref`` on CPU
+tensors.  ``launches`` counts K4's launches and ``bwd_launches`` K4b's
+(one per backward call).  ``flash_attention_bwd_planted`` runs a variant
+of K4b built with a planted fault, for the checks that must fail on it.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref as _ref
 
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (64, 128, 256)            # head_dim the CUDA kernel is built for
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -52,13 +61,7 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          f"aligned rows (strides a multiple of 8)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
-
-    Query i and key j are at absolute positions i and j (from 0).  causal
-    keeps j <= i; window > 0 keeps j > i - window.  Scale 1/sqrt(D)."""
-    global launches
+def _check_args(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: q (B,Sq,H,D), k = v (B,Sk,KV,D)")
     b, sq, h, d = q.shape
@@ -70,17 +73,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v of different dtypes")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window)
+
+
+def _check_cuda(q, k, v) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS} "
                          f"on CUDA")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
                          f"on CUDA (bfloat16, float32)")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, K4b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
+
+    Query i and key j are at absolute positions i and j (from 0).  causal
+    keeps j <= i; window > 0 keeps j > i - window.  Scale 1/sqrt(D).
+    Differentiable in q, k and v (backward: ``flash_attention_bwd``)."""
+    _check_args(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    global launches
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+    _check_cuda(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -97,3 +143,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{err})")
     launches += 1
     return out
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
+
+
+def _bwd_fn(planted: bool):
+    """K4b's launcher and workspace size (floats) from its library, or
+    from the planted-fault variant's."""
+    lib = build.load("flash_attention_bwd_faults" if planted
+                     else "flash_attention_bwd")
+    fn = (lib.repro_flash_attention_bwd_planted if planted
+          else lib.repro_flash_attention_bwd)
+    ws = lib.repro_flash_attention_bwd_workspace
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGS + ([ctypes.c_int, ctypes.c_int64] if planted
+                                   else []) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ws.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_int]
+        ws.restype = ctypes.c_int64
+    return fn, ws
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """Gradients of ``flash_attention(q, k, v)`` at ``do``, given its output
+    ``o``: (dq (B, Sq, H, D), dk, dv (B, Sk, KV, D)) in the inputs' dtype.
+    K4b on CUDA tensors, ``ref.flash_attention_bwd_ref`` on CPU tensors."""
+    return _backward(q, k, v, o, do, causal, window, ())
+
+
+def flash_attention_bwd_planted(q, k, v, o, do, *, causal: bool = True,
+                                window: int = 0, fault: int, tile: int = 1):
+    """``flash_attention_bwd`` on CUDA tensors through the variant of K4b
+    built with ``REPRO_K4B_PLANTED_FAULTS``: ``fault`` 1 leaves key tile
+    ``tile`` (-1: the last) out of the dK/dV work, 2 leaves Delta out of
+    dS.  Not counted in ``bwd_launches``."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd_planted: CUDA tensors only")
+    return _backward(q, k, v, o, do, causal, window, (fault, tile))
+
+
+def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple):
+    global bwd_launches
+    _check_args(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: o and do must have q's shape")
+    if not (o.device == do.device == q.device):
+        raise ValueError("flash_attention_bwd: o, do not on q's device")
+    if q.device.type == "cpu":
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                            window=window)
+    _check_cuda(q, k, v)
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    q, k, v, o, do = (t.to(q.dtype).contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn, ws = _bwd_fn(bool(planted))
+    n_part = ws(b, sk, kvh, d, _DTYPE_CODE[q.dtype])
+    if n_part < 0:
+        raise RuntimeError("flash_attention_bwd: cannot query the device")
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), part.data_ptr(), b, sq, sk, h,
+             kvh, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
+             *planted, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: CUDA launch failed (error "
+                           f"{err})")
+    if not planted:
+        bwd_launches += 1
+    return dq, dk, dv

@@ -1,10 +1,13 @@
-"""Plain PyTorch version of the flash-attention kernel (K4).
+"""Plain PyTorch versions of the flash-attention kernels: the forward (K4)
+and its backward (K4b).
 
-Computes what ``flash_attention_ref`` of the JAX package computes (a
-materialized softmax in float32, scale 1/sqrt(D), causal and sliding-window
-masks with absolute positions from 0 in both q and k, a fully masked row
-gives 0), in the model's layout and with GQA folded by a reshape instead of
-a repeat of K/V.
+``flash_attention_ref`` computes what ``flash_attention_ref`` of the JAX
+package computes (a materialized softmax in float32, scale 1/sqrt(D),
+causal and sliding-window masks with absolute positions from 0 in both q
+and k, a fully masked row gives 0), in the model's layout and with GQA
+folded by a reshape instead of a repeat of K/V.  ``flash_attention_bwd_ref``
+writes out the backward's formulas on the same materialized scores.  Both
+compute in float32, or in float64 for float64 inputs (gradcheck).
 """
 from __future__ import annotations
 
@@ -18,11 +21,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Sk, KV, D), H % KV == 0 -> (B, Sq, H, D)."""
     b, sq, h, d = q.shape
+    p, denom = _probs(q, k, causal, window)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(_compute_dtype(q)))
+    o = o / denom.permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _compute_dtype(q: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _probs(q, k, causal: bool, window: int):
+    """Unnormalised softmax numerators p (B, KV, G, Sq, Sk), 0 where masked,
+    and their row sums clamped to 1e-30 (a fully masked row gives 0)."""
+    b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    qf = q.to(torch.float32).reshape(b, sq, kvh, g, d)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(torch.float32)) \
-        / math.sqrt(d)
+    ct = _compute_dtype(q)
+    qf = q.to(ct).reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.to(ct)) / math.sqrt(d)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -33,18 +49,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
-    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
-    denom = p.sum(dim=-1).clamp_min(1e-30)                 # (B, KV, G, Sq)
-    o = o / denom.permute(0, 3, 1, 2)[..., None]
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    return p, p.sum(dim=-1).clamp_min(1e-30)               # (B, KV, G, Sq)
 
 
-def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0):
+    """Gradients of ``flash_attention_ref`` at ``do``: (dq (B, Sq, H, D),
+    dk, dv (B, Sk, KV, D)) in the inputs' dtypes.  ``o`` is the forward's
+    output, as the kernel reads it: P = softmax(S), dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - Delta) with Delta_i = sum(dO_i * O_i),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); dK and dV summed over each
+    KV head's G query heads."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    ct = _compute_dtype(q)
+    p, denom = _probs(q, k, causal, window)
+    p = p / denom[..., None]                               # (B,KV,G,Sq,Sk)
+    qf = q.to(ct).reshape(b, sq, kvh, g, d)
+    dof = do.to(ct).reshape(b, sq, kvh, g, d)
+    delta = (dof * o.to(ct).reshape(b, sq, kvh, g, d)).sum(-1)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dof, v.to(ct))
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, k.to(ct)) * scale
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf) * scale
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p, dof)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def row_error(got: torch.Tensor, want: torch.Tensor,
+              floor: float = 0.0) -> float:
     """Largest error of ``got`` against ``want`` (..., D), each row's
     largest element error over that row's RMS.  An absolute error hides a
     fault in rows whose outputs are small (a row that averages n keys has
-    |o| ~ n**-0.5); this measure weighs every row alike."""
+    |o| ~ n**-0.5); this measure weighs every row alike.  ``floor`` > 0
+    puts each row's RMS at least at ``floor`` times the whole tensor's:
+    for gradients, where a row can be 0 but for rounding (dQ of query 0,
+    which sees key 0 alone)."""
     g, w = got.float(), want.float()
     rms = w.pow(2).mean(dim=-1).sqrt()
+    if floor:
+        rms = rms.clamp_min(floor * w.pow(2).mean().sqrt())
     err = (g - w).abs().amax(dim=-1)
     return (err / rms.clamp_min(1e-30)).max().item() if err.numel() else 0.0

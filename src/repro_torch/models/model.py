@@ -9,6 +9,7 @@ order (layer i has kind ``cfg.pattern_layers[i]``), run by a Python loop.
 Entry points:
   init(generator)                          -> params
   forward(params, batch)                   -> (logits, aux)
+  loss_fn(params, batch)                   -> (loss, metrics)
   prefill(params, batch, max_len)          -> (last logits, cache)
   decode_step(params, tokens, cache, pos)  -> (logits, cache)
   init_cache(batch_size, max_len, device)  -> cache
@@ -16,15 +17,27 @@ Entry points:
 The cache is a list with one ``{"k", "v"}`` dict per layer; ``prefill``
 fills a fresh one and ``decode_step`` updates it in place.  The moe, ssm,
 hybrid, encdec and vlm families are not ported yet (ROADMAP.md, "Modules to
-port"), nor is ``loss_fn`` (the training slice).
+port").
+
+Remat (``cfg.remat``), when autograd records the forward: each block runs
+under ``torch.utils.checkpoint`` (non-reentrant), where the JAX package
+wraps each period of the layer scan.  ``"full"`` keeps only the block's
+input; ``"dots"`` keeps, like ``jax.checkpoint_policies.checkpoint_dots``,
+the outputs of the matrix products (``aten.mm``, ``bmm``, ``addmm``: the
+q/k/v and output projections and the MLP's up, gate and down) and
+recomputes the rest in the backward: the norms, RoPE, GeGLU and, on the
+card, attention, so K4 runs twice per layer and step, in the forward and
+in the recompute before K4b.  Remat changes no value.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -83,6 +96,24 @@ class Params(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
 
+    def tree(self) -> Dict:
+        """The same parameter tensors as a tree of dicts and lists
+        (``repro_torch.train.tree``): {"embed", "blocks": [per layer],
+        "final_norm"}, the form the optimizer and checkpoints take."""
+        return {"embed": dict(self.embed.items()),
+                "blocks": [{k: dict(v.items()) for k, v in blk.items()}
+                           for blk in self.blocks],
+                "final_norm": dict(self.final_norm.items())}
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
 
 # ==================================================================== model
 @dataclasses.dataclass
@@ -113,14 +144,50 @@ class Model:
                            out_dtype=L.dtype_of(cfg.logits_dtype),
                            true_vocab=cfg.vocab)
 
+    def _block(self, p, kind: str, h, positions):
+        """One block, under ``cfg.remat`` when autograd records."""
+        remat = self.cfg.remat
+        if remat == "none" or not torch.is_grad_enabled():
+            return _block_apply_train(p, self.cfg, kind, h, positions)
+        if remat == "dots":
+            context = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        elif remat == "full":
+            context = ckpt.noop_context_fn
+        else:
+            raise ValueError(f"remat {remat!r}")
+        return ckpt.checkpoint(_block_apply_train, p, self.cfg, kind, h,
+                               positions, use_reentrant=False,
+                               context_fn=context)
+
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  Returns (logits (B, S, V), aux loss)."""
         h, positions = self._embed_inputs(params, batch["tokens"])
         for p, kind in zip(params.blocks, self.cfg.pattern_layers):
-            h = _block_apply_train(p, self.cfg, kind, h, positions)
+            h = self._block(p, kind, h, positions)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return self._logits(params, h), aux
+
+    # ---------------------------------------------------------------- loss
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy over ``batch["targets"]`` (any integer
+        dtype), weighted by ``batch["loss_mask"]`` where given.  Returns
+        (ce + aux, {"ce", "aux", "ppl_proxy"}), 0-d float32 tensors."""
+        logits, aux = self.forward(params, batch)
+        targets = batch["targets"].to(torch.int64)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = (nll * mask).sum() / denom
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux,
+                      "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],

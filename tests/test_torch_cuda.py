@@ -1,6 +1,7 @@
 """The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher, both
-forms), K2 (DDT gather, both bodies), K3 (checksum) and K4 (flash
-attention) against their plain versions, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
+forms), K2 (DDT gather, both bodies), K3 (checksum), K4 (flash
+attention) and K4b (its backward; tolerances at ``K4B_REL``) against
+their plain versions, a small train step on the card against the CPU, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
 on the CPU, the serving path's kernel launches, and the fabric and MPI
 layer (threefry draws, a lossy SLMP fabric tick for tick, a rendezvous
 with NIC unpack) on the card against the CPU.  Tolerance: exact (0)
@@ -31,7 +32,7 @@ from repro_torch.kernels.ddt import ops as ddt_ops  # noqa: E402
 from repro_torch.kernels.ddt.ref import ddt_gather_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_ref, row_error)
+    flash_attention_bwd_ref, flash_attention_ref, row_error)
 from repro_torch.kernels.matcher import ops as match_ops  # noqa: E402
 from repro_torch.kernels.matcher.ref import (  # noqa: E402
     match_first_ref, match_ref)
@@ -523,6 +524,146 @@ def test_serving_path_launches_k4_per_layer(cuda):
     assert fa_ops.launches - before == cfg.n_layers
     ctoks, _ = ceng.generate(ceng.prefill({"tokens": tokens}), 8)
     assert torch.equal(toks.cpu(), ctoks)
+
+
+# ------------------------------------------------------------ K4b (bwd)
+# K4b against its plain version: dq, dk, dv each within a max abs error of
+# K4B_REL times the largest |value| and a row error (rows' RMS floored at
+# K4B_ROW_FLOOR times the tensor's, since a row of dQ can be 0 but for
+# rounding, as query 0's is) of K4B_ROW_TOL.  bfloat16's floor is low, so
+# that the small dK/dV rows of the last key tiles, which few queries see,
+# are judged by their own RMS.  float32's limit is so tight that such a
+# row dropped reads far beyond it at a floor of 1, while a lower floor
+# would count the rounding noise of dQ's row 0 (~1e-5 of the tensor's
+# RMS) as a fault.  bfloat16: the
+# gradients are rounded to bfloat16 (one step is 2**-8 of a value up to ~4
+# RMS), and the kernel rounds P and dS to bfloat16 before their products
+# (K4's row limit, for the same reason); every sum is float32 in both.
+K4B_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+K4B_ROW_TOL = {torch.bfloat16: 0.1, torch.float32: 1e-4}
+K4B_ROW_FLOOR = {torch.bfloat16: 0.05, torch.float32: 1.0}
+
+K4B_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
+    (2, 1024, 1024, 4, 1, 256, True, 0, torch.bfloat16),    # gemma3 global
+    (2, 1024, 1024, 4, 1, 256, True, 512, torch.bfloat16),  # gemma3 local
+    (1, 512, 512, 16, 8, 128, True, 0, torch.bfloat16),     # qwen3 GQA
+    (2, 333, 333, 4, 2, 64, True, 40, torch.float32),       # ragged, window
+    (1, 130, 200, 4, 4, 128, False, 0, torch.bfloat16),     # not causal
+    (2, 100, 100, 4, 1, 256, True, 0, torch.float32),       # Sq < BQ tiles
+]
+
+
+def _k4b_inputs(case, cuda):
+    b, sq, sk, h, kv, d, causal, window, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(sq + d + window)
+    q, do = (torch.randn((b, sq, h, d), device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    return q, k, v, o, do
+
+
+def _k4b_ok(got, want, dtype):
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype == dtype and a.shape == w.shape
+        err = (a.float() - w.float()).abs().max().item()
+        if err > K4B_REL[dtype] * w.float().abs().max().item():
+            return False
+        if row_error(a, w, floor=K4B_ROW_FLOOR[dtype]) > K4B_ROW_TOL[dtype]:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("case", K4B_CASES)
+def test_flash_attention_bwd_kernel_vs_plain(cuda, case):
+    causal, window, dtype = case[6:]
+    q, k, v, o, do = _k4b_inputs(case, cuda)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                   window=window)
+    assert _k4b_ok(got, want, dtype)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("fault, tile", [(1, 1), (2, 1), (1, -1)],
+                         ids=["1", "2", "1-last"])
+def test_flash_attention_bwd_planted_faults_fail(cuda, fault, tile):
+    """Key tile 1 or the last key tile dropped from the dK/dV loop, or
+    Delta left out of dS, fails the check above: gemma3-1b's two layer
+    kinds in bfloat16 and the two float32 cases."""
+    for case in (*K4B_CASES[:2], K4B_CASES[3], K4B_CASES[5]):
+        causal, window, dtype = case[6:]
+        q, k, v, o, do = _k4b_inputs(case, cuda)
+        before = fa_ops.bwd_launches
+        got = fa_ops.flash_attention_bwd_planted(
+            q, k, v, o, do, causal=causal, window=window, fault=fault,
+            tile=tile)
+        assert fa_ops.bwd_launches == before
+        want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+        assert not _k4b_ok(got, want, dtype)
+
+
+def test_flash_attention_autograd_launches_k4_and_k4b(cuda):
+    """Through autograd on the card: one K4 launch forward, one K4b launch
+    backward, gradients equal to the kernel called directly."""
+    q, k, v, _, do = _k4b_inputs(K4B_CASES[2], cuda)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    direct = fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """Two train steps of a small float32 dense model whose head_dim the
+    kernels take (K4 forward and recompute, K4b backward, remat "dots"):
+    losses and parameters as on the CPU.  float32: 1e-4 (sums in other
+    orders through a few layers and two AdamW steps)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import tree as T
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(configs.get_smoke_config("gemma3-1b"),
+                              head_dim=64, dtype="float32", remat="dots")
+    model = build_model(cfg)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 41)).astype(np.int32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = model.init(torch.Generator().manual_seed(0))
+        params = params.to(dev)
+        tr = Trainer(model, topt.OptConfig(lr=1e-3, warmup_steps=0),
+                     TrainerConfig(steps=2, log_every=1))
+        before = (fa_ops.launches, fa_ops.bwd_launches)
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "targets": toks[:, 1:].to(dev)}
+        params, _, hist = tr.fit(params, topt.init(params.tree()),
+                                 iter([batch, batch]), resume=False)
+        if dev.type == "cuda":
+            n = cfg.n_layers * 2
+            assert (fa_ops.launches - before[0],
+                    fa_ops.bwd_launches - before[1]) == (2 * n, n)
+        out[dev.type] = ([h["loss"] for h in hist],
+                         [p.detach().cpu() for p in T.leaves(params.tree())])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 # ------------------------------------------------------- fabric and MPI
