@@ -15,8 +15,9 @@ and nothing of the JAX package ``repro``.  Phases:
      compile with no spills; K4 must be the warp-specialised Hopper
      kernel: its ptxas report shows no spills and no ignored
      ``setmaxnreg`` (C7508), and its SASS (``cuobjdump -sass``) holds
-     HGMMA and UTMALDG instructions; K4b (K4's backward) must compile with
-     no spills;
+     HGMMA and UTMALDG instructions; K4b (K4's backward) the same: no
+     spills, no C7508, no C7518 (a wgmma serialised under a branch), and
+     HGMMA and UTMALDG in its SASS;
   2. K1 (matcher) against its plain PyTorch versions on the card, bit for
      bit, in both forms, the fused first-match stage (with a fifth of the
      lanes not valid) and the (N, C) form: built-in and random rule
@@ -35,7 +36,9 @@ and nothing of the JAX package ``repro``.  Phases:
      a larger buffer; 65,536 and 262,144 random frames of random (odd and
      even) lengths with non-zero bytes past each length;
   3b. K4 (flash attention) against its plain version on the card, each
-     case printing its max abs error and its row error (see K4_ROW_TOL):
+     case printing its max abs error and its row error (see K4_ROW_TOL),
+     and the row log-sum-exp it writes for K4b against the plain lse
+     (LSE_ATOL; the output must not change when lse is asked for):
      gemma3-1b's prefill shape (causal, window 0 and 512), a qwen3-1.7b
      shape, ragged Sq = Sk = 1,000, non-causal with a ragged Sk, and
      D = 64 in float32.  At gemma3-1b's shape, planted faults (the kernel
@@ -86,10 +89,11 @@ and nothing of the JAX package ``repro``.  Phases:
      batch that the launcher's ``SpinIngest`` delivered must equal the
      corpus's.  K4 on a global and a local layer's own q/k/v from the run
      agrees with its plain version, and K4's planted faults fail there.
-     K4b on those layers' own q/k/v/o/dO, on qwen3-1.7b's GQA shape at
-     head_dim 128 and in float32 agrees with its plain version (K4B_REL,
-     K4B_ROW_TOL), and planted faults (key tile 1 or the last key tile
-     dropped from the dK/dV loop, Delta left out) fail that check on the
+     K4b on those layers' own q/k/v/o/dO and the lse their forward saved,
+     on qwen3-1.7b's GQA shape at head_dim 128 and in float32 agrees with
+     its plain version (K4B_REL, K4B_ROW_TOL), and planted faults (key
+     tile 1 or the last key tile dropped from the dK/dV loop, Delta left
+     out, each row's lse read from the next row) fail that check on the
      two layers and in float32.  Then
      ``run_with_restarts`` with a failure planted before step 3 must resume
      from the step-2 checkpoint (gemma3-1b cut to 6 layers and vocab
@@ -122,7 +126,9 @@ and nothing of the JAX package ``repro``.  Phases:
      fabric path (``fabric_launches``).  K4b on phase 5d's own inputs of a
      global and a local layer against its plain version and SDPA's
      backward, with its bound (10 D operations per live pair over the
-     bf16 peak); K1, K2 and K4 carry their launches on the training path
+     bf16 peak), its TFLOP/s and its kernels one by one under the profiler;
+     K4 on the serving path's layers with and without the lse output; K1,
+     K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
      one ``SpinIngest`` call, one NIC step, one serving prefill, one
@@ -130,9 +136,10 @@ and nothing of the JAX package ``repro``.  Phases:
      checkpoint taken mid-run in 5c) and one gemma3-1b train step under
      torch.profiler: kernels per
      call, device busy time, the idle share it implies and the kernels
-     with the most device time; for the train step also the host's time
-     in CUDA runtime calls and in aten operators (self time), and the
-     operators with the most of it.
+     with the most device time; for the train step also K4's and K4b's
+     device time and share of the busy time, the host's time in CUDA
+     runtime calls and in aten operators (self time), and the operators
+     with the most of it.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -172,6 +179,12 @@ SERVE_GEN = 32
 # the sums over up to 2,048 keys run in another order.
 K4_ATOL = {"bfloat16": 0.06, "float32": 1e-4}
 K4_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+# K4's lse against the plain lse, max abs error over the rows with a live
+# key (a row with none must be +inf in both): float32 sums of up to 2,048
+# exponentials in another order, and in bfloat16 the special-function
+# unit's exp2 and log2 (relative error about 2**-22), on values up to ~10:
+# a few 1e-6.
+LSE_ATOL = 1e-4
 # Phase 5c.  SLMP transfer at benchmarks/bench_fabric.py's configuration
 # (64 KiB message, batch 32, 1,024-byte payloads, timeout 12, latency 2,
 # jitter 2, seed 11) at window 4; the MPI rendezvous of
@@ -495,9 +508,14 @@ def check_k4_build(build):
 
 
 def check_k4b_build(build):
-    """K4b must compile with no spills (its dQ, dK and dV sums live in
-    registers).  Prints registers per kernel and shared memory."""
+    """K4b must be warp-specialised Hopper kernels too: 15 kernels (dQ and
+    dK/dV for 3 head_dims x 2 dtypes, and the bfloat16 partial-sum
+    reduction for 3 head_dims) with no spills (the dQ, dK and dV sums live in registers),
+    no ignored ``setmaxnreg`` (C7508), no wgmma serialised (C7518), and
+    HGMMA and UTMALDG instructions in the SASS."""
     import re
+    import shutil
+    import subprocess
     text = build.build_logs.get("flash_attention_bwd")
     if text is None:
         raise AssertionError("K4b: no ptxas report (delete src/repro_torch/"
@@ -505,12 +523,22 @@ def check_k4b_build(build):
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill "
                                          r"(?:stores|loads)", text)]
     regs = re.findall(r"Used (\d+) registers", text)
-    log(f"[1] K4b ptxas: {len(regs)} kernels (dQ and dK/dV for 3 head_dims "
-        f"x 2 dtypes, and the bfloat16 partial-sum reduction), registers "
-        f"{regs}, spill bytes {sum(spills)}")
-    if len(regs) != 13 or not spills or any(spills):
+    for code in ("C7508", "C7518"):
+        if code in text:
+            raise AssertionError(f"K4b: ptxas warns {code}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(
+        "flash_attention_bwd"))], capture_output=True, text=True,
+        check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS")}
+    log(f"[1] K4b ptxas: {len(regs)} kernels, registers at entry {regs}, "
+        f"spill bytes {sum(spills)}, no C7508 or C7518; SASS: {counts}")
+    if len(regs) != 15 or not spills or any(spills):
         raise AssertionError(f"K4b: ptxas reports {len(regs)} kernels, "
                              f"spills {spills}")
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"K4b: no HGMMA or UTMALDG in the SASS {counts}")
 
 
 def phase_k1(dev):
@@ -690,21 +718,35 @@ def k4_errors(got, want):
 
 
 def k4_check(tag, q, k, v, causal, window):
-    """K4 against its plain version on the same card tensors.  Returns
-    (max abs error, row error, the plain output); raises beyond K4_ATOL
-    or K4_ROW_TOL."""
+    """K4 against its plain version on the same card tensors, and the lse
+    it writes when asked (the training path's forward) against the plain
+    lse.  Returns (max abs error, row error, the plain output); raises
+    beyond K4_ATOL, K4_ROW_TOL or LSE_ATOL, or when asking for lse changes
+    the output."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got2, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                             window=window)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
     torch.cuda.synchronize()
     err, row, ok = k4_errors(got, want)
+    live = torch.isfinite(want_lse)
+    lse_err = ((lse[live] - want_lse[live]).abs().max().item()
+               if live.any() else 0.0)
     dt = str(q.dtype).split(".")[-1]
     log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal="
         f"{causal} window={window}: max abs err {err:.3e} (limit "
-        f"{K4_ATOL[dt]}), row error {row:.3e} (limit {K4_ROW_TOL[dt]})")
+        f"{K4_ATOL[dt]}), row error {row:.3e} (limit {K4_ROW_TOL[dt]}); "
+        f"lse max abs err {lse_err:.3e} (limit {LSE_ATOL}), "
+        f"{int((~live).sum())} rows with no live key")
     if not ok:
         raise AssertionError(f"K4 errors {err}, {row} beyond the limits")
+    if not (lse_err <= LSE_ATOL and torch.equal(torch.isinf(lse), ~live)
+            and torch.equal(got, got2)):
+        raise AssertionError(f"K4 lse error {lse_err}, or the output "
+                             f"changes with lse")
     return err, row, want
 
 
@@ -825,6 +867,13 @@ def profile_step(step_fn, host=False):
     for e in evs:
         dev_us[e.name] += e.time_range.end - e.time_range.start
     if host:
+        for kernel, parts in (("K4", ("flash_fwd_bf16",)),
+                              ("K4b", ("dq_wgmma_kernel", "dkv_wgmma_kernel",
+                                       "dkv_reduce_kernel"))):
+            us = sum(t for n, t in dev_us.items()
+                     if any(p in n for p in parts))
+            log(f"[7]   {kernel} device time {us / 1e3:.3f} ms, "
+                f"{us / busy * 100:.2f} % of the busy time")
         avg = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CPU]
         runtime = sorted((e for e in avg if e.key.startswith("cuda")),
@@ -1311,14 +1360,15 @@ def k4b_errors(got, want):
     return rel, row, rel <= K4B_REL[dt] and row <= K4B_ROW_TOL[dt]
 
 
-def k4b_check(tag, q, k, v, o, do, causal, window, faults=False):
-    """K4b against its plain version on the same card tensors; with
+def k4b_check(tag, q, k, v, o, do, causal, window, faults=False, lse=None):
+    """K4b against its plain version on the same card tensors, from the
+    forward's ``lse`` (the wrapper has K4 write it when it is None); with
     ``faults``, the kernel with each planted fault must fail the check.
     Returns the largest max abs error of dq, dk, dv."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                  window=window)
+                                  window=window, lse=lse)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window)
     torch.cuda.synchronize()
@@ -1333,17 +1383,18 @@ def k4b_check(tag, q, k, v, o, do, causal, window, faults=False):
     if not ok:
         raise AssertionError(f"K4b errors {rel}, {row} beyond the limits")
     again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                    window=window)
+                                    window=window, lse=lse)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("K4b is not deterministic")
     if faults:
         for fault, tile, name in (
                 (1, 1, "key tile 1 dropped from the dK/dV loop"),
                 (1, -1, "the last key tile dropped from the dK/dV loop"),
-                (2, 0, "Delta left out of dS")):
+                (2, 0, "Delta left out of dS"),
+                (3, 0, "each row's lse read from the next row")):
             bad = ops.flash_attention_bwd_planted(
                 q, k, v, o, do, causal=causal, window=window, fault=fault,
-                tile=tile)
+                tile=tile, lse=lse)
             rel, row, ok = k4b_errors(bad, want)
             log(f"{tag} planted fault ({name}): {rel:.3e} of the largest "
                 f"value, row error {row:.3e}: "
@@ -1375,8 +1426,8 @@ def phase_train(dev):
     plain_ingest = train.datalib.SpinIngest
     gc_clock = [0.0, 0.0, 0]     # start of a collection, ms in all, gen 2
 
-    def recording(q, k, v, o, do, **kw):     # the layers' own K4b calls
-        kind = "local" if kw["window"] else "global"
+    def recording(q, k, v, o, do, **kw):     # the layers' own K4b calls,
+        kind = "local" if kw["window"] else "global"   # with their lse
         if kind not in captured:
             captured[kind] = (q, k, v, o, do, kw)
         return plain_bwd(q, k, v, o, do, **kw)
@@ -1470,7 +1521,8 @@ def phase_train(dev):
         for kind in ("global", "local"):
             q, k, v, o, do, kw = captured[kind]
             tag = f"[5d] K4, a {kind} layer's own q/k/v:"
-            _, _, want_o = k4_check(tag, q, k, v, **kw)
+            _, _, want_o = k4_check(tag, q, k, v, causal=kw["causal"],
+                                    window=kw["window"])
             k4_planted_faults(tag, q, k, v, kw["window"], want_o)
             errs.append(k4b_check(f"[5d] K4b, a {kind} layer's own "
                                   f"inputs:", q, k, v, o, do, faults=True,
@@ -1481,9 +1533,9 @@ def phase_train(dev):
             (2, 777, 4, 2, 64, f32, 100))):   # float32, ragged, window
         q, k, v = k4_inputs(dev, b, s, s, h, kv, d, dt, seed=40 + i)
         do = k4_inputs(dev, b, s, s, h, kv, d, dt, seed=50 + i)[0]
-        o = k4.flash_attention(q, k, v, causal=True, window=w)
+        o, lse = k4.flash_attention_with_lse(q, k, v, causal=True, window=w)
         k4b_check("[5d] K4b", q, k, v, o, do, causal=True, window=w,
-                  faults=dt == f32)
+                  faults=dt == f32, lse=lse)
     train_restarts(dev)
     runs = train_remat_steps(dev)
     return captured, launches, max(errs), runs["dots"]
@@ -1960,7 +2012,13 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
         bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         by = "operations" if n_ops / BF16_OPS_PER_S > \
             nbytes / HBM_BYTES_PER_S else "bytes"
+        # without lse (the serving path) and with it (training), in turns
         ms, host = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
+        ms_lse, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
+                                                                **kw))
+        ms2, _ = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
+        ms_lse2, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
+                                                                 **kw))
         plain, _ = time_ms(lambda: k4ref.flash_attention_ref(q, k, v, **kw),
                            runs=5, per_run=4)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1986,21 +2044,25 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
             f"{lib * 1e3:.3f} us (differs from K4 by {lib_err:.3e}), bound "
             f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
             f"{n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{bound / ms * 100:.1f} % of the bound)")
+            f"{bound / ms * 100:.1f} % of the bound); in turns without and "
+            f"with the lse output: {ms * 1e3:.3f}, {ms_lse * 1e3:.3f}, "
+            f"{ms2 * 1e3:.3f}, {ms_lse2 * 1e3:.3f} us")
         if w:
             k4_entry.update(local_ms=ms, local_plain_ms=plain,
-                            local_bound_ms=bound, local_library_ms=lib)
+                            local_bound_ms=bound, local_library_ms=lib,
+                            local_lse_ms=ms_lse)
         else:
             k4_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by, library_ms=lib)
+                            bound_by=by, library_ms=lib, lse_ms=ms_lse)
     out.append(k4_entry)
 
-    # K4b on the training run's own inputs of a global and a local layer;
-    # SDPA's backward (torch.autograd.grad of scaled_dot_product_attention
-    # on the same tensors) as the yardstick.  Operations: 10 D per live
-    # (query, key) pair (S, dP, dV, dQ, dK; the kernel's lse pass adds 2 D,
-    # which the bound does not count); bytes: q, k, v, o, dO read, dq, dk,
-    # dv written.
+    # K4b on the training run's own inputs of a global and a local layer,
+    # from the lse their forward saved; SDPA's backward
+    # (torch.autograd.grad of scaled_dot_product_attention on the same
+    # tensors) as the yardstick.  Operations: 10 D per live (query, key)
+    # pair (S, dP, dV, dQ, dK; the dQ kernel's recompute of S and dP adds
+    # 4 D, which the bound does not count); bytes: q, k, v, o, dO read, dq,
+    # dk, dv written.
     k4b_entry = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/flash_attention/"

@@ -3,14 +3,15 @@
 Each kernel source (``kernels/<name>/<name>.cu``) exports a plain C
 interface and is compiled on its own into a shared library for
 ``sm_90a``, at first use, into ``kernels/_build/`` (listed in
-``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt; the compiler's output is kept
-beside it (``.log``), so a later process that finds the library built
-still has its ptxas report.  ``build_all`` starts one ``nvcc`` per library
-at once, which is what ``chip_smoke.py`` calls up front.  A library in
-``DEFINES`` is a variant of another's source built with extra macros:
-``flash_attention_bwd_faults`` is K4b with the planted faults that the
-checks must catch, kept out of the shipped kernel.
+``.gitignore``).  A library's file name carries a hash of its source, the
+headers (``*.cuh``) beside it and its flags, so an edited source or header
+is rebuilt; the compiler's output is kept beside it (``.log``), so a later
+process that finds the library built still has its ptxas report.
+``build_all`` starts one ``nvcc`` per library at once, which is what
+``chip_smoke.py`` calls up front.  A library in ``DEFINES`` is a variant
+of another's source built with extra macros: ``flash_attention_bwd_faults``
+is K4b with the planted faults that the checks must catch, kept out of
+the shipped kernel.
 
 Nothing here runs when the package is imported.
 """
@@ -55,7 +56,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):   # included by the source
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + DEFINES.get(name, [])).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -52,22 +52,23 @@
 //    window's edge, the ragged end); interior tiles take no mask.
 //  * Epilogue: O / l in bf16 into the warpgroup's own rows of Q's shared
 //    memory (the same swizzle), then one TMA store per 64 columns; TMA
-//    drops rows past Sq.
+//    drops rows past Sq.  When the caller passes an lse buffer (training,
+//    for K4b), each row's log-sum-exp, (m + log2 l) ln 2, is stored too;
+//    the serving path passes none and pays nothing for it.
 //  * Blocks run the longest query tiles (causal: the last) first, and the
 //    query heads of one KV head next to each other, so that a GQA group
 //    reads the same K/V tiles while they are in L2.
 //
 // float32: one warp per query row, D / 32 elements a lane, the dot product
 // reduced across the warp and the softmax updated key by key with CUDA-core
-// FMA.  It exists for completeness (tests, small float32 configurations);
-// the serving path runs bfloat16.
+// FMA; lse as in the bfloat16 kernel.  It exists for completeness (tests,
+// small float32 configurations); the serving path runs bfloat16.
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <cuda.h>          // CUtensorMap; the driver is reached at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,10 +76,9 @@ constexpr int BQ = 128;            // query rows per block (2 warpgroups x 64)
 constexpr int BK = 64;             // keys per shared-memory stage
 constexpr int WG = 128;            // threads per warpgroup
 constexpr int THREADS = 3 * WG;    // consumers 0 and 1, producer 2
-constexpr int ROW_BYTES = 128;     // one swizzled row: 64 bf16 of one panel
 constexpr int PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 = 384 x 168
 constexpr int CONSUMER_REGS = 232;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG = -1e30f;
 constexpr int F32_ROWS = 8;        // query rows (warps) per float32 block
 
@@ -96,239 +96,14 @@ struct Tiles {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-struct Strides {
-  int64_t b, s, h;                 // elements; the last dimension is contiguous
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit; subnormal results flush to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// ---- TMA (coordinates innermost first: column, row, head, batch)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3) : "memory");
-}
-
-// ---- wgmma
-// Shared-memory matrix descriptor for a 128-byte-swizzled operand whose
-// 1 KiB swizzle atoms (8 rows of 128 bytes) start on 1 KiB boundaries.
-// lbo: bytes between 64-element column panels (MN-major only; ignored for
-// K-major); sbo: bytes between groups of 8 rows.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {   // at most N groups pending
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define FA_ACC8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (m64 x n64, f32) (+)= a . b, a and b from shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : FA_ACC8(0),
-        FA_ACC8(8),
-        FA_ACC8(16),
-        FA_ACC8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64 x n64, f32) += a . b, a (bf16) from registers, b (MN-major)
-// from shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FA_ACC8(0),
-        FA_ACC8(8),
-        FA_ACC8(16),
-        FA_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64 x n128, f32) += a . b, a (bf16) from registers, b (MN-major)
-// from shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FA_ACC8(0),
-        FA_ACC8(8),
-        FA_ACC8(16),
-        FA_ACC8(24),
-        FA_ACC8(32),
-        FA_ACC8(40),
-        FA_ACC8(48),
-        FA_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64 x n256, f32) += a . b, a (bf16) from registers, b (MN-major)
-// from shared memory.
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : FA_ACC8(0),
-        FA_ACC8(8),
-        FA_ACC8(16),
-        FA_ACC8(24),
-        FA_ACC8(32),
-        FA_ACC8(40),
-        FA_ACC8(48),
-        FA_ACC8(56),
-        FA_ACC8(64),
-        FA_ACC8(72),
-        FA_ACC8(80),
-        FA_ACC8(88),
-        FA_ACC8(96),
-        FA_ACC8(104),
-        FA_ACC8(112),
-        FA_ACC8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-#undef FA_ACC8
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n256(d, a, db);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap to, int sq, int sk,
-                   int h, int group, int causal, int window,
-                   float scale_log2) {
+                   const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ lse, int sq, int sk, int h, int group,
+                   int causal, int window, float scale_log2) {
   using T = Tiles<D>;
   constexpr int S = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -454,7 +229,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(o);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(o, pa[kk],
+        wgmma_rs_nd<D>(o, pa[kk],
                     smem_desc(sV + s * T::KV_BYTES + kk * 16 * ROW_BYTES,
                               T::KV_PANEL, 1024));
       wgmma_commit();
@@ -560,6 +335,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
+    // the rows' log-sum-exp of the scaled scores (natural log) for K4b:
+    // 2^m l is the sum of 2^(scale log2(e) s); a row with no live key gets
+    // +inf, for which exp(s - lse) is 0.  The quad's first thread writes.
+    if (lse != nullptr && tq == 0) {
+      float* lr = lse + (static_cast<int64_t>(bi) * h + hi) * sq;
+      if (row_a < sq)
+        lr[row_a] = m_r[0] == -INFINITY ? INFINITY
+                                        : (m_r[0] + log2f(l_r[0])) * LN2;
+      if (row_b < sq)
+        lr[row_b] = m_r[1] == -INFINITY ? INFINITY
+                                        : (m_r[1] + log2f(l_r[1])) * LN2;
+    }
     const float inv_a = 1.f / fmaxf(l_r[0], 1e-30f);
     const float inv_b = 1.f / fmaxf(l_r[1], 1e-30f);
     // O into this warpgroup's rows of Q's shared memory, in the same
@@ -589,9 +376,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int sq,
-                  int sk, int h, int group, Strides qs, Strides ks, Strides vs,
-                  int causal, int window, float scale) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int sq, int sk, int h, int group,
+                  Strides qs, Strides ks, Strides vs, int causal, int window,
+                  float scale) {
   constexpr int R = D / 32;
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x * F32_ROWS + threadIdx.x / 32;
@@ -630,90 +418,47 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int r = 0; r < R; ++r) op[lane + 32 * r] = acc[r] / den;
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
-// that the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// Rank-4 map of a bf16 tensor (B, S, heads, D) with element strides `st`,
-// dimensions innermost first (D, S, heads, B); a box is 64 columns x `rows`
-// rows of one head, 128-byte swizzled.  Out-of-range rows read as zeros
-// and are not written.
-bool tensor_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
-                int b, Strides st, int rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (lse != nullptr && lane == 0)   // as the bfloat16 kernel writes it
+    lse[(bi * h + hi) * sq + i] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int h, int kvh, Strides qs, Strides ks,
-                Strides vs, int causal, int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int sq, int sk, int h, int kvh, Strides qs,
+                Strides ks, Strides vs, int causal, int window,
+                cudaStream_t stream) {
   using T = Tiles<D>;
   const int64_t blocks = static_cast<int64_t>((sq + BQ - 1) / BQ) * b * h;
   if (blocks > INT_MAX) return -1;
   const Strides os{static_cast<int64_t>(sq) * h * D,
                    static_cast<int64_t>(h) * D, D};
+  // set on every launch: the limit belongs to the device that is current.
+  // First, too: a runtime call binds the device's context to the calling
+  // thread, which cuTensorMapEncodeTiled below needs.
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap mq, mk, mv, mo;
   if (!tensor_map(&mq, q, D, sq, h, b, qs, BQ) ||
       !tensor_map(&mk, k, D, sk, kvh, b, ks, BK) ||
       !tensor_map(&mv, v, D, sk, kvh, b, vs, BK) ||
       !tensor_map(&mo, o, D, sq, h, b, os, 64))
     return -2;
-  // set on every launch: the limit belongs to the device that is current
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
   flash_fwd_bf16<D><<<static_cast<int>(blocks), THREADS, T::SMEM, stream>>>(
-      mq, mk, mv, mo, sq, sk, h, h / kvh, causal, window, scale_log2);
+      mq, mk, mv, mo, lse, sq, sk, h, h / kvh, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int h, int kvh, Strides qs, Strides ks,
-               Strides vs, int causal, int window, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int sq, int sk, int h, int kvh, Strides qs,
+               Strides ks, Strides vs, int causal, int window,
+               cudaStream_t stream) {
   const dim3 grid((sq + F32_ROWS - 1) / F32_ROWS, b * h);
   flash_fwd_f32<D><<<grid, F32_ROWS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, h,
       h / kvh, qs, ks, vs, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
@@ -721,13 +466,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// o (B, Sq, H, D) contiguous; q, k, v by strides (elements).  dtype 0 is
-// bfloat16, 1 is float32.  Returns the cudaError of the launch, -1 for a
-// head_dim, dtype or grid the kernel does not take, or -2 when a bfloat16
-// tensor map cannot be built (the driver lacks cuTensorMapEncodeTiled or
-// refuses the strides).
+// o (B, Sq, H, D) contiguous; q, k, v by strides (elements).  lse, when
+// not null, float32 (B, H, Sq) contiguous, receives each row's log-sum-exp
+// of the scaled scores (+inf for a row with no live key); K4b reads it.
+// dtype 0 is bfloat16, 1 is float32.  Returns the cudaError of the launch,
+// -1 for a head_dim, dtype or grid the kernel does not take, or -2 when a
+// bfloat16 tensor map cannot be built (the driver lacks
+// cuTensorMapEncodeTiled or refuses the strides).
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int64_t b,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int64_t b,
     int64_t sq, int64_t sk, int64_t h, int64_t kvh, int64_t d, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int dtype, int causal, int window,
@@ -744,10 +492,10 @@ extern "C" int repro_flash_attention(
             ikv = static_cast<int>(kvh);
 #define REPRO_FA_CASE(DIM)                                                    \
   case DIM:                                                                   \
-    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, ib, isq, isk, ih, ikv,   \
-                                         qs, ks, vs, causal, w, st)           \
-                      : launch_f32<DIM>(q, k, v, o, ib, isq, isk, ih, ikv,    \
-                                        qs, ks, vs, causal, w, st);
+    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, lse, ib, isq, isk, ih,   \
+                                         ikv, qs, ks, vs, causal, w, st)      \
+                      : launch_f32<DIM>(q, k, v, o, lse, ib, isq, isk, ih,    \
+                                        ikv, qs, ks, vs, causal, w, st);
   if (dtype != 0 && dtype != 1) return -1;
   switch (d) {
     REPRO_FA_CASE(64)

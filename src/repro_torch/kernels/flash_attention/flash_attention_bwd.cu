@@ -6,72 +6,104 @@
 // kernel.  It computes the gradients of what flash_attention_ref computes
 // (scale 1/sqrt(D), absolute positions from 0, causal keeps j <= i, window
 // > 0 keeps j > i - window, a fully masked row gives 0) without storing the
-// scores: with P = exp(S - lse) recomputed tile by tile,
+// scores: with P = exp(S - lse) recomputed tile by tile from the row
+// log-sum-exp that K4's forward wrote (+inf for a row with no live key),
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta),  Delta_i = dO_i . O_i,
 //   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D).
-// Inputs q, o, dO (B, Sq, H, D) and k, v (B, Sk, KV, D), contiguous; query
-// head h reads KV head h / (H / KV).  bfloat16 or float32, D 64, 128 or 256;
-// every sum is float32.
+// Inputs q, o, dO (B, Sq, H, D) and k, v (B, Sk, KV, D), contiguous, and
+// lse float32 (B, H, Sq); query head h reads KV head h / (H / KV).
+// bfloat16 or float32, D 64, 128 or 256; every sum is float32.
 //
-// bfloat16 (the model's dtype), on the tensor cores, three kernels in
-// stream order.  Tiles are 64 query rows by 64 keys; a block has 8 warps;
-// products are mma.sync.m16n8k16 (bf16 in, float32 sums) on ldmatrix
-// fragments of shared-memory tiles whose rows are padded by 16 bytes (an
-// 8-row ldmatrix meets each bank once); P and dS are rounded to bfloat16
-// before their products, as the forward rounds P.
-//  * dq_mma_kernel, a block per (query tile, head, batch): Delta of its
-//    rows from O and dO; a first pass over the key tiles the rows can see
-//    gives each row's max and sum, so lse (K4's forward is left as it is
-//    and does not write lse out); a second pass recomputes S and dP, forms
-//    dS in shared memory and adds dS K to dQ, held in registers.  Writes
-//    dQ, and lse and Delta (float32, (B, H, Sq)) for dkv_mma_kernel.
-//  * dkv_mma_kernel, a block per (key tile, KV head, batch, split): K and
-//    V of the tile stay in shared memory while the block walks its share of
-//    the (query head of the group, query tile) steps that can see the tile
-//    (causal: from the tile on; window: up to W - 1 past its end),
-//    computing S^T and dP^T and adding P^T dO to dV and dS^T Q to dK in
-//    registers.  The steps are split evenly among `splits` blocks (the
-//    launcher picks enough for about two blocks per SM, at most 8: at
-//    gemma3-1b's train shape a layer has only 64 key tiles), each writing
-//    float32 partial sums into a scratch buffer of
-//    repro_flash_attention_bwd_workspace floats.
-//  * reduce_kernel adds the splits' partial sums in split order and rounds
-//    dK and dV to bfloat16.  The G query heads of a KV group meet inside the
-//    blocks and the splits in a fixed order: no atomics, and the result is
-//    the same on every run.
-// Each block brings its next tile in by cp.async while it computes on the
-// current one (two buffers).
+// bfloat16 (the model's dtype), three kernels in stream order, each block
+// of the first two built as K4's forward is: one producer warpgroup that
+// gives its registers up (setmaxnreg.dec) and issues every load by TMA
+// (rank-4 maps with 128-byte swizzle, rows past S read as zeros) into a
+// ring of shared-memory stages guarded by full and empty mbarriers (2
+// stages at D = 256, 4 below), and two consumer warpgroups that run every
+// product as wgmma on those tiles.  Tiles are 64 query rows by 64
+// keys.
+//  * dq_wgmma_kernel, a block per (query tile, head, batch), the longest
+//    causal walks first: Q and dO come in once, then K and V tiles stream
+//    through the ring.  While the first tiles load, the consumers read the
+//    rows' lse and compute their Delta from O and dO, and write both, lse
+//    in log2 units, into padded (B, H, Sq rounded up to 64) buffers for
+//    the dK/dV kernel (+inf and 0 past Sq, so that kernel needs no row
+//    mask).  Consumer 0 computes
+//    S = Q K^T and P = exp2(S scale log2(e) - lse log2(e)) and hands P to
+//    consumer 1 in float32 through shared memory (two named barriers);
+//    consumer 1 computes dP = dO V^T, dS = P (dP - Delta), rounds dS to
+//    bfloat16 in the accumulator's layout (wgmma's A-register layout) and
+//    adds dS K to dQ, K read as the MN-major (transposed) operand.  S and
+//    dP are m64n64 products with both operands in shared memory; dQ (64 x
+//    D float32, D / 2 registers a thread) stays in consumer 1's registers.
+//    Consumer 0 releases a stage once S is done and runs a tile ahead, so
+//    its S and softmax overlap consumer 1's products.
+//  * dkv_wgmma_kernel, a block per (key tile, KV head, batch, split): K and
+//    V come in once; the (Q, dO, lse, Delta) of each (query head of the
+//    group, query tile) step that can see the tile stream through the
+//    ring (causal: from the tile on; window: up to W - 1 past its end).
+//    Consumer 0 computes S^T = K Q^T, forms P^T, hands it to consumer 1 in
+//    float32 through shared memory (two named barriers) and adds P^T dO
+//    to dV; consumer 1 computes dP^T = V dO^T, forms dS^T = P^T (dP^T -
+//    Delta) and adds dS^T Q to dK.  So each holds one 64 x D float32 sum
+//    (at D = 256 a thread holds 128 of them, with S^T or dP^T beside it),
+//    and all five products run on wgmma with dO and Q as MN-major
+//    operands, no transpose through shared memory.  A tile's steps are
+//    split evenly among as many blocks as they need at a cap that the
+//    launcher picks (plan_dkv) to fill one wave of the SMs: at gemma3-1b's
+//    train shape a layer has only 64 key tiles, and under the causal mask
+//    the first sees 16 times the steps of the last.  Each block writes
+//    float32 partial sums into a scratch buffer.
+//  * dkv_reduce_kernel adds the splits' partial sums in split order and
+//    rounds dK and dV to bfloat16.  The G query heads of a KV group meet
+//    inside the blocks and the splits in a fixed order: no atomics, and the
+//    result is the same on every run.
+// Only the tiles on the causal diagonal, at the window's edge or at the
+// ragged end of the keys are masked, on the accumulators, outside the
+// wgmma issue (ptxas serialises a wgmma under a branch).
 //
-// float32 (tests and small configurations), on the CUDA cores: the same
-// two passes with tiles of 16 query rows by 32 keys (dq_kernel, dkv_kernel;
-// a warp computes 2 rows x 32 keys of S and dP, a thread one key and two
-// rows), one block per key tile, dK and dV written directly.
+// float32 (tests and small configurations), on the CUDA cores: tiles of
+// 16 query rows by 32 keys (dq_kernel, dkv_kernel; a warp computes 2 rows x
+// 32 keys of S and dP, a thread one key and two rows), one block per key
+// tile, dK and dV written directly; lse from K4's forward as above.
 //
 // Key tiles that the masks remove for a whole query tile, and query tiles
 // that cannot see a key tile, are never visited.
 //
-// What bounds it on the H100: operations, 10 D per live (query, key) pair
-// (plus 2 D for the lse pass), against the bytes of q, k, v, o, dO and the
-// three gradients.  mma.sync takes its operands through registers, and at
-// 16 x 32 warp tiles the ldmatrix traffic holds it well below the
-// tensor-core peak; wgmma on shared-memory operands, TMA loads and lse
-// from K4's epilogue are a later PR.
+// What bounds it on the H100: by the count, operations, 10 D per live
+// (query, key) pair (S, dP, dV, dK, dQ), against the bytes of q, k, v, o,
+// dO and the three gradients.  This design does 14 D: the dQ kernel
+// recomputes S and dP so that no kernel needs float32 atomics.  As
+// measured at gemma3-1b's train shape (D 256), the streaming of tiles
+// into each SM: every 64 x 64 step brings in 64 KiB, and a build whose
+// consumers only wait for each stage and release it took two thirds of
+// the kernels' time.  Shared memory holds only 2 stages beside the
+// resident operands at D 256, and registers rule out wider tiles (a
+// warpgroup holds one 64 x 256 float32 sum); so the design keeps the
+// consumers off the load path and balances the dK/dV walk over the SMs.
 //
 // Built with -DREPRO_K4B_PLANTED_FAULTS, the library is instead the
 // variant that the checks hold to fail (repro_flash_attention_bwd_planted):
 // fault 1 drops one key tile from the dK/dV work (its dK, dV rows stay 0),
-// fault 2 leaves Delta out of dS.  The shipped library has neither.
+// fault 2 leaves Delta out of dS, fault 3 reads each row's lse from the
+// next row.  The shipped library has none of them.
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 16;             // query rows per tile: warp w has w, w + 8
-constexpr int BK = 32;             // keys per tile: one per lane
+constexpr int THREADS = 256;       // float32 kernels and the reduction
+constexpr int BQ = 16;             // float32: query rows per tile
+constexpr int BK = 32;             // float32: keys per tile, one per lane
+constexpr int T64 = 64;            // bfloat16: query rows and keys per tile
+constexpr int WG = 128;            // threads per warpgroup
+constexpr int WG_THREADS = 3 * WG; // consumers 0 and 1, producer 2
+constexpr int PRODUCER_REGS = 40;  // 128 x 40 + 256 x 232 = 384 x 168
+constexpr int CONSUMER_REGS = 232;
 
 struct Args {
   const void* q;
@@ -79,14 +111,17 @@ struct Args {
   const void* v;
   const void* o;
   const void* dout;
+  const float* lse;  // (B, H, Sq), natural log, from K4's forward
   void* dq;
   void* dk;
   void* dv;
-  float* lse;
-  float* delta;
-  float* part;       // bfloat16 path: dK, dV partial sums, 2 x splits x dk
-  int64_t b, sq, sk, h, kv;
-  int causal, window, splits;
+  float* lse2;       // bfloat16: (B, H, sq_pad), lse log2(e), +inf past Sq
+  float* delta;      // float32 (B, H, Sq); bfloat16 (B, H, sq_pad), 0 past Sq
+  float* part;       // bfloat16: dK, dV partial sums, 2 x splits x B Sk KV D
+  int64_t b, sq, sk, h, kv, sq_pad;
+  int causal, window;
+  int splits;        // bfloat16: the most dK/dV blocks that share a key tile
+  int64_t cap;       // bfloat16: the most steps a dK/dV block takes
   float scale;
 #ifdef REPRO_K4B_PLANTED_FAULTS
   int fault;
@@ -95,19 +130,26 @@ struct Args {
 };
 
 #ifdef REPRO_K4B_PLANTED_FAULTS
-// the dK/dV grid's x is the key tile
-__device__ __forceinline__ bool tile_dropped(const Args& a, int64_t kt) {
+// key tile kt of n_tiles
+__device__ __forceinline__ bool tile_dropped(const Args& a, int64_t kt,
+                                             int64_t n_tiles) {
   return a.fault == 1 &&
-         kt == (a.fault_tile < 0 ? gridDim.x - 1 : a.fault_tile);
+         kt == (a.fault_tile < 0 ? n_tiles - 1 : a.fault_tile);
 }
 __device__ __forceinline__ bool delta_dropped(const Args& a) {
   return a.fault == 2;
 }
+__device__ __forceinline__ int64_t lse_row(const Args& a, int64_t row) {
+  return a.fault == 3 && row + 1 < a.sq ? row + 1 : row;
+}
 #else
-__device__ __forceinline__ bool tile_dropped(const Args&, int64_t) {
+__device__ __forceinline__ bool tile_dropped(const Args&, int64_t, int64_t) {
   return false;
 }
 __device__ __forceinline__ bool delta_dropped(const Args&) { return false; }
+__device__ __forceinline__ int64_t lse_row(const Args&, int64_t row) {
+  return row;
+}
 #endif
 
 __device__ __forceinline__ bool live(const Args& a, int64_t i, int64_t j) {
@@ -115,11 +157,6 @@ __device__ __forceinline__ bool live(const Args& a, int64_t i, int64_t j) {
          (a.window <= 0 || j > i - a.window);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int m = 16; m; m >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
-  return x;
-}
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int m = 16; m; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
@@ -165,22 +202,6 @@ __device__ __forceinline__ void dots(const float* Qs, const float* dOs,
   }
 }
 
-// the S part of dots alone (the lse pass)
-template <int D>
-__device__ __forceinline__ void dots_s(const float* Qs, const float* Ks,
-                                       int w, int lane, float s[2]) {
-  s[0] = s[1] = 0.f;
-  const float* kr = Ks + lane * (D + 1);
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 q0 = *reinterpret_cast<const float4*>(Qs + w * D + d);
-    float4 q1 = *reinterpret_cast<const float4*>(Qs + (w + 8) * D + d);
-    float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
-    s[0] += q0.x * k0 + q0.y * k1 + q0.z * k2 + q0.w * k3;
-    s[1] += q1.x * k0 + q1.y * k1 + q1.z * k2 + q1.w * k3;
-  }
-}
-
 // key tiles [lo, hi) that query rows [q0, q0 + BQ) can see
 __device__ __forceinline__ void key_tiles(const Args& a, int64_t q0,
                                           int64_t& lo, int64_t& hi) {
@@ -202,6 +223,8 @@ dq_kernel(Args a) {
   float* Ks = dOs + BQ * D;                  // BK x (D + 1)
   float* Vs = Ks + BK * (D + 1);             // BK x (D + 1)
   float* dSs = Vs + BK * (D + 1);            // BQ x BK
+  float* lse_s = dSs + BQ * BK;              // BQ
+  float* dl_s = lse_s + BQ;                  // BQ
 
   const int64_t n_qt = (a.sq + BQ - 1) / BQ;
   // causal: the last query tiles see the most keys; run them first
@@ -220,8 +243,8 @@ dq_kernel(Args a) {
   load_rows<D>(Qs, D, q, q0, BQ, a.sq, a.h, hh);
   load_rows<D>(dOs, D, dout, q0, BQ, a.sq, a.h, hh);
 
-  // Delta of rows w and w + 8
-  float dl[2];
+  // Delta and lse of rows w and w + 8 (a row with no live key: lse +inf,
+  // so P = exp(s - inf) = 0 everywhere), in shared memory for the loop
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     int64_t row = q0 + w + 8 * r;
@@ -229,46 +252,21 @@ dq_kernel(Args a) {
     if (row < a.sq)
       for (int d = lane; d < D; d += 32)
         acc += dout[(row * a.h + hh) * D + d] * o[(row * a.h + hh) * D + d];
-    dl[r] = delta_dropped(a) ? 0.f : warp_sum(acc);
+    acc = delta_dropped(a) ? 0.f : warp_sum(acc);
+    if (lane == 0) {
+      dl_s[w + 8 * r] = acc;
+      lse_s[w + 8 * r] =
+          row < a.sq ? a.lse[(bb * a.h + hh) * a.sq + lse_row(a, row)]
+                     : INFINITY;
+      if (row < a.sq) a.delta[(bb * a.h + hh) * a.sq + row] = acc;
+    }
   }
 
   int64_t kt_lo, kt_hi;
   key_tiles(a, q0, kt_lo, kt_hi);
 
-  // pass 1: lse of rows w and w + 8 (online max and sum)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {
-    __syncthreads();
-    load_rows<D>(Ks, D + 1, k, kt * BK, BK, a.sk, a.kv, kvh);
-    __syncthreads();
-    float s[2];
-    dots_s<D>(Qs, Ks, w, lane, s);
-    const int64_t j = kt * BK + lane;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = live(a, q0 + w + 8 * r, j) ? s[r] * a.scale : -INFINITY;
-      float mt = warp_max(x);
-      float mn = fmaxf(m[r], mt);
-      if (mn == -INFINITY) continue;             // nothing live yet
-      float e = warp_sum(x == -INFINITY ? 0.f : __expf(x - mn));
-      l[r] = l[r] * __expf(m[r] - mn) + e;
-      m[r] = mn;
-    }
-  }
-  float lse[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // a row with no live key: P = exp(s - inf) = 0 everywhere
-    lse[r] = l[r] > 0.f ? m[r] + __logf(l[r]) : INFINITY;
-    int64_t row = q0 + w + 8 * r;
-    if (lane == 0 && row < a.sq) {
-      a.lse[(bb * a.h + hh) * a.sq + row] = lse[r];
-      a.delta[(bb * a.h + hh) * a.sq + row] = dl[r];
-    }
-  }
-
-  // pass 2: dQ[i][d] += sum_j dS[i][j] K[j][d]; a thread owns column
-  // d = tid % D of rows [ib * RN, ib * RN + RN)
+  // dQ[i][d] += sum_j dS[i][j] K[j][d]; a thread owns column d = tid % D
+  // of rows [ib * RN, ib * RN + RN)
   constexpr int RN = BQ * D / THREADS;
   const int dcol = threadIdx.x % D, ib = threadIdx.x / D;
   float acc[RN];
@@ -284,9 +282,10 @@ dq_kernel(Args a) {
     const int64_t j = kt * BK + lane;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float p = live(a, q0 + w + 8 * r, j) ? __expf(s[r] * a.scale - lse[r])
-                                           : 0.f;
-      dSs[(w + 8 * r) * BK + lane] = p * (dp[r] - dl[r]);
+      const int ri = w + 8 * r;
+      float p = live(a, q0 + ri, j) ? __expf(s[r] * a.scale - lse_s[ri])
+                                    : 0.f;
+      dSs[ri * BK + lane] = p * (dp[r] - dl_s[ri]);
     }
     __syncthreads();
 #pragma unroll 4
@@ -346,7 +345,7 @@ dkv_kernel(Args a) {
   if (a.window > 0 && k0 + BK - 1 + a.window < qmax)
     qmax = k0 + BK - 1 + a.window;
   int64_t qt_lo = qmin / BQ, qt_hi = qmax > qmin ? (qmax + BQ - 1) / BQ : 0;
-  if (tile_dropped(a, kt)) qt_hi = 0;
+  if (tile_dropped(a, kt, gridDim.x)) qt_hi = 0;
 
   // a thread owns column d = tid % D of keys [jb * JN, jb * JN + JN)
   constexpr int JN = BK * D / THREADS;
@@ -364,7 +363,8 @@ dkv_kernel(Args a) {
       load_rows<D>(dOs, D, dout, q0, BQ, a.sq, a.h, hh);
       if (threadIdx.x < BQ) {
         int64_t row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < a.sq ? lse[hh * a.sq + row] : INFINITY;
+        lse_s[threadIdx.x] = row < a.sq ? lse[hh * a.sq + lse_row(a, row)]
+                                        : INFINITY;
         dl_s[threadIdx.x] = row < a.sq ? delta[hh * a.sq + row] : 0.f;
       }
       __syncthreads();
@@ -411,501 +411,533 @@ dkv_kernel(Args a) {
   }
 }
 
-// ------------------------------------------- bfloat16: mma.sync tiles
-// In each tile step a warp first computes a 16 x 32 piece of S and dP
-// (rows w % 4, columns w / 4), forms P and dS in float32 and writes them to
-// shared memory as bfloat16; after a barrier it multiplies them into its
-// own 16 x D/2 piece of the gradient (rows w % 4, columns w / 4 of D),
-// which stays in registers.
-constexpr int MT = 64;             // query rows and keys per tile
-constexpr int LDP = MT + 8;        // row stride of the P / dS tiles
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand, 16 x 16 at (r0, c0) of a row-major tile with row stride ld
-__device__ __forceinline__ void load_a(uint32_t a[4],
-                                       const __nv_bfloat16* t, int ld,
-                                       int r0, int c0, int lane) {
-  ldsm4(a, t + (r0 + (lane % 16)) * ld + c0 + (lane / 16) * 8);
-}
-// B operands of two n-tiles (n0 .. n0 + 15) at k0 .. k0 + 15 from a tile
-// stored [n][k] row-major: b[0], b[1] for n0, b[2], b[3] for n0 + 8
-__device__ __forceinline__ void load_b_nk(uint32_t b[4],
-                                          const __nv_bfloat16* t, int ld,
-                                          int n0, int k0, int lane) {
-  int j = lane / 8;
-  ldsm4(b, t + (n0 + (lane % 8) + (j / 2) * 8) * ld + k0 + (j % 2) * 8);
-}
-// the same from a tile stored [k][n] row-major (transposed on load)
-__device__ __forceinline__ void load_b_kn(uint32_t b[4],
-                                          const __nv_bfloat16* t, int ld,
-                                          int k0, int n0, int lane) {
-  int j = lane / 8;
-  ldsm4t(b, t + (k0 + (lane % 8) + (j % 2) * 8) * ld + n0 + (j / 2) * 8);
-}
-
-// 64 rows from row0 of a (rows, heads, D) bfloat16 slab at head hh into a
-// tile of row stride D + 8, 16 bytes a thread; rows past limit are 0
+// ------------------------------------------- bfloat16: TMA and wgmma
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row0, int64_t limit,
-                                          int64_t heads, int64_t hh) {
-  constexpr int CH = D / 8;                       // 16-byte chunks a row
-  for (int c = threadIdx.x; c < MT * CH; c += THREADS) {
-    int r = c / CH, k = c % CH;
-    int64_t row = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < limit)
-      v = *reinterpret_cast<const uint4*>(src + (row * heads + hh) * D +
-                                          k * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + k * 8) = v;
-  }
-}
+struct Tiles {
+  static constexpr int STAGES = D == 256 ? 2 : 4;
+  static constexpr int PANELS = D / 64;            // 64-column TMA boxes a row
+  static constexpr int PANEL = T64 * ROW_BYTES;    // 64 rows of one panel
+  static constexpr int TILE = PANELS * PANEL;      // one 64-row tile
+  static constexpr int STAT = 2 * T64 * 4;         // lse2, Delta of 64 rows
+  static constexpr int XP = 32 * WG * 4;           // P or P^T, 32 floats a
+                                                   // consumer thread
+  // dQ kernel: Q, dO; per stage K, V; the P exchange; barriers (Q and dO
+  // full; per stage K/V full, K/V empty)
+  static constexpr int DQ_BAR = (2 + 2 * STAGES) * TILE + XP;
+  static constexpr int DQ_SMEM = DQ_BAR + 8 * (1 + 2 * STAGES) + 1024;
+  // dK/dV kernel: K, V; per stage Q, dO and statistics; the P^T exchange;
+  // barriers (K/V full; per stage full, empty)
+  static constexpr int DKV_BAR = (2 + 2 * STAGES) * TILE + STAGES * STAT + XP;
+  static constexpr int DKV_SMEM = DKV_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
-// load_tile by cp.async (16 bytes a thread, rows past limit zero-filled);
-// the caller commits the group and waits for it
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int64_t row0, int64_t limit,
-                                                int64_t heads, int64_t hh) {
-  constexpr int CH = D / 8;
-  for (int c = threadIdx.x; c < MT * CH; c += THREADS) {
-    int r = c / CH, k = c % CH;
-    int64_t row = row0 + r;
-    const bool ok = row < limit;
-    const __nv_bfloat16* from = src + ((ok ? row : 0) * heads + hh) * D + k * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst + r * (D + 8) + k * 8)), "l"(from),
-                    "r"(ok ? 16 : 0));
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// acc (16 x 32: four n-tiles) += A rows [r0, r0 + 16) of ta times the
-// rows [n0, n0 + 32) of tb, both [row][d] tiles of width D
-template <int D>
-__device__ __forceinline__ void mma_rows(float acc[4][4],
-                                         const __nv_bfloat16* ta, int r0,
-                                         const __nv_bfloat16* tb, int n0,
-                                         int lane) {
-#pragma unroll 4
-  for (int ks = 0; ks < D; ks += 16) {
-    uint32_t a[4], b0[4], b1[4];
-    load_a(a, ta, D + 8, r0, ks, lane);
-    load_b_nk(b0, tb, D + 8, n0, ks, lane);
-    load_b_nk(b1, tb, D + 8, n0 + 16, ks, lane);
-    mma16816(acc[0], a, b0[0], b0[1]);
-    mma16816(acc[1], a, b0[2], b0[3]);
-    mma16816(acc[2], a, b1[0], b1[1]);
-    mma16816(acc[3], a, b1[2], b1[3]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero4(float acc[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// acc (16 x D/2: D/16 n-tiles) += the 16 x 64 tile rows [r0, r0 + 16) of
-// tp (row stride LDP) times the 64 x D/2 columns [c0, c0 + D/2) of tv, a
-// [k][d] tile of width D
-template <int D>
-__device__ __forceinline__ void mma_into(float acc[][4],
-                                         const __nv_bfloat16* tp, int r0,
-                                         const __nv_bfloat16* tv, int c0,
-                                         int lane) {
-#pragma unroll
-  for (int ks = 0; ks < MT; ks += 16) {
-    uint32_t a[4];
-    load_a(a, tp, LDP, r0, ks, lane);
-#pragma unroll
-    for (int nt = 0; nt < D / 16; nt += 2) {
-      uint32_t b[4];
-      load_b_kn(b, tv, D + 8, ks, c0 + nt * 8, lane);
-      mma16816(acc[nt], a, b[0], b[1]);
-      mma16816(acc[nt + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-dq_mma_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using bf = __nv_bfloat16;
-  constexpr int TILE = MT * (D + 8);
-  bf* Qs = reinterpret_cast<bf*>(smem_raw);          // MT x (D + 8)
-  bf* dOs = Qs + TILE;
-  bf* Kb = dOs + TILE;                               // two K tiles
-  bf* Vb = Kb + 2 * TILE;                            // two V tiles
-  bf* dSs = Vb + 2 * TILE;                           // MT x LDP
-  float* stat = reinterpret_cast<float*>(dSs + MT * LDP);  // 2 x 2 x MT
-  float* lse_s = stat + 4 * MT;                      // MT
-  float* dl_s = lse_s + MT;                          // MT
-
-  const int64_t n_qt = (a.sq + MT - 1) / MT;
-  const int64_t qt = a.causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
-  const int64_t hh = blockIdx.y, bb = blockIdx.z;
-  const int64_t kvh = hh / (a.h / a.kv);
-  const int64_t q0 = qt * MT;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rg = (w % 4) * 16;                       // the warp's rows
-  const int kh = (w / 4) * 32;                       // its key half
-  const int dh = (w / 4) * (D / 2);                  // its half of D
-
-  const bf* q = static_cast<const bf*>(a.q) + bb * a.sq * a.h * D;
-  const bf* o = static_cast<const bf*>(a.o) + bb * a.sq * a.h * D;
-  const bf* dout = static_cast<const bf*>(a.dout) + bb * a.sq * a.h * D;
-  const bf* k = static_cast<const bf*>(a.k) + bb * a.sk * a.kv * D;
-  const bf* v = static_cast<const bf*>(a.v) + bb * a.sk * a.kv * D;
-
-  load_tile_async<D>(Qs, q, q0, a.sq, a.h, hh);
-  load_tile_async<D>(dOs, dout, q0, a.sq, a.h, hh);
-  cp_commit();
-  // Delta: warp w takes rows 8w .. 8w + 7
-  for (int r = w * 8; r < w * 8 + 8; ++r) {
-    int64_t row = q0 + r;
-    float acc = 0.f;
-    if (row < a.sq)
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(dout[(row * a.h + hh) * D + d]) *
-               __bfloat162float(o[(row * a.h + hh) * D + d]);
-    acc = warp_sum(acc);
-    if (lane == 0) dl_s[r] = delta_dropped(a) ? 0.f : acc;
-  }
-
-  int64_t kt_lo, kt_hi;
-  {
-    int64_t kmin = a.window > 0 ? q0 - a.window + 1 : 0;
-    int64_t kmax = a.causal ? q0 + MT : a.sk;
-    if (kmin < 0) kmin = 0;
-    if (kmax > a.sk) kmax = a.sk;
-    kt_lo = kmin / MT;
-    kt_hi = kmax > kmin ? (kmax + MT - 1) / MT : kt_lo;
-  }
-
-  // pass 1: each thread's rows rg + g and rg + g + 8 over its key half.
-  // K tiles come in by cp.async, the next one in flight while this one is
-  // used (two buffers)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  if (kt_lo < kt_hi) {
-    load_tile_async<D>(Kb, k, kt_lo * MT, a.sk, a.kv, kvh);
-    cp_commit();
-  }
-  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {
-    const bf* Ks = Kb + ((kt - kt_lo) & 1) * TILE;
-    if (kt + 1 < kt_hi) {
-      load_tile_async<D>(Kb + ((kt + 1 - kt_lo) & 1) * TILE, k,
-                         (kt + 1) * MT, a.sk, a.kv, kvh);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float s[4][4];
-    zero4<4>(s);
-    mma_rows<D>(s, Qs, rg, Ks, kh, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int64_t i = q0 + rg + g + 8 * r;
-      float x[8], mt = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          int64_t j = kt * MT + kh + nt * 8 + 2 * t + e;
-          float val = live(a, i, j) ? s[nt][2 * r + e] * a.scale : -INFINITY;
-          x[nt * 2 + e] = val;
-          mt = fmaxf(mt, val);
-        }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      // no branch around the shuffles: quads of one warp hold other rows
-      const float mn = fmaxf(m[r], mt);
-      const float mref = mn == -INFINITY ? 0.f : mn;
-      float e = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) e += __expf(x[c] - mref);
-      e += __shfl_xor_sync(0xffffffffu, e, 1);
-      e += __shfl_xor_sync(0xffffffffu, e, 2);
-      l[r] = l[r] * __expf(m[r] - mref) + e;
-      m[r] = mn;
-    }
-    __syncthreads();                 // before the next load reuses Ks
-  }
-  cp_wait<0>();                      // Q and dO when no key tile came
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      stat[(w / 4) * 2 * MT + rg + g + 8 * r] = m[r];
-      stat[(w / 4) * 2 * MT + MT + rg + g + 8 * r] = l[r];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < MT) {
-    const int r = threadIdx.x;
-    float m0 = stat[r], l0 = stat[MT + r];
-    float m1 = stat[2 * MT + r], l1 = stat[3 * MT + r];
-    float mx = fmaxf(m0, m1), ls = 0.f;
-    if (mx != -INFINITY)
-      ls = (l0 > 0.f ? l0 * __expf(m0 - mx) : 0.f) +
-           (l1 > 0.f ? l1 * __expf(m1 - mx) : 0.f);
-    float lse = ls > 0.f ? mx + __logf(ls) : INFINITY;
-    lse_s[r] = lse;
-    int64_t row = q0 + r;
-    if (row < a.sq) {
-      a.lse[(bb * a.h + hh) * a.sq + row] = lse;
-      a.delta[(bb * a.h + hh) * a.sq + row] = dl_s[r];
-    }
-  }
-  __syncthreads();
-
-  // pass 2: dQ (rows rg, columns dh .. dh + D/2) += dS K
-  float acc[D / 16][4];
-  zero4<D / 16>(acc);
-  if (kt_lo < kt_hi) {
-    load_tile_async<D>(Kb, k, kt_lo * MT, a.sk, a.kv, kvh);
-    load_tile_async<D>(Vb, v, kt_lo * MT, a.sk, a.kv, kvh);
-    cp_commit();
-  }
-  for (int64_t kt = kt_lo; kt < kt_hi; ++kt) {
-    const int buf = (kt - kt_lo) & 1;
-    const bf* Ks = Kb + buf * TILE;
-    const bf* Vs = Vb + buf * TILE;
-    if (kt + 1 < kt_hi) {
-      load_tile_async<D>(Kb + (buf ^ 1) * TILE, k, (kt + 1) * MT, a.sk,
-                         a.kv, kvh);
-      load_tile_async<D>(Vb + (buf ^ 1) * TILE, v, (kt + 1) * MT, a.sk,
-                         a.kv, kvh);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero4<4>(s);
-    zero4<4>(dp);
-    mma_rows<D>(s, Qs, rg, Ks, kh, lane);
-    mma_rows<D>(dp, dOs, rg, Vs, kh, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int ri = rg + g + 8 * r;
-      const float lse = lse_s[ri], dl = dl_s[ri];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          int64_t j = kt * MT + kh + nt * 8 + 2 * t + e;
-          float p = live(a, q0 + ri, j)
-                        ? __expf(s[nt][2 * r + e] * a.scale - lse) : 0.f;
-          ds[e] = p * (dp[nt][2 * r + e] - dl);
-        }
-        *reinterpret_cast<uint32_t*>(dSs + ri * LDP + kh + nt * 8 + 2 * t) =
-            pack_bf16(ds[0], ds[1]);
-      }
-    }
-    __syncthreads();
-    mma_into<D>(acc, dSs, rg, Ks, dh, lane);
-    __syncthreads();                 // before the next load reuses Ks, Vs
-  }
-  bf* dq = static_cast<bf*>(a.dq) + bb * a.sq * a.h * D;
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int64_t row = q0 + rg + g + 8 * r;
-      if (row < a.sq)
-        *reinterpret_cast<uint32_t*>(dq + (row * a.h + hh) * D + dh +
-                                     nt * 8 + 2 * t) =
-            pack_bf16(acc[nt][2 * r] * a.scale, acc[nt][2 * r + 1] * a.scale);
-    }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-dkv_mma_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using bf = __nv_bfloat16;
-  constexpr int TILE = MT * (D + 8);
-  bf* Ks = reinterpret_cast<bf*>(smem_raw);          // MT x (D + 8)
-  bf* Vs = Ks + TILE;
-  bf* Qb = Vs + TILE;                                // two Q tiles
-  bf* dOb = Qb + 2 * TILE;                           // two dO tiles
-  bf* Ps = dOb + 2 * TILE;                           // MT keys x LDP
-  bf* dSs = Ps + MT * LDP;
-  float* lse_b = reinterpret_cast<float*>(dSs + MT * LDP);   // 2 x MT
-  float* dl_b = lse_b + 2 * MT;                               // 2 x MT
-
-  const int64_t kt = blockIdx.x;
-  const int64_t kvh = blockIdx.y;
-  const int64_t bb = blockIdx.z / a.splits, sp = blockIdx.z % a.splits;
-  const int64_t g_heads = a.h / a.kv;
-  const int64_t k0 = kt * MT;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kg = (w % 4) * 16;                       // the warp's keys
-  const int qh = (w / 4) * 32;                       // its query half
-  const int dh = (w / 4) * (D / 2);                  // its half of D
-
-  const bf* q = static_cast<const bf*>(a.q) + bb * a.sq * a.h * D;
-  const bf* dout = static_cast<const bf*>(a.dout) + bb * a.sq * a.h * D;
-  const bf* k = static_cast<const bf*>(a.k) + bb * a.sk * a.kv * D;
-  const bf* v = static_cast<const bf*>(a.v) + bb * a.sk * a.kv * D;
-  const float* lse = a.lse + bb * a.h * a.sq;
-  const float* delta = a.delta + bb * a.h * a.sq;
-
-  load_tile_async<D>(Ks, k, k0, a.sk, a.kv, kvh);
-  load_tile_async<D>(Vs, v, k0, a.sk, a.kv, kvh);
-  cp_commit();
-
-  int64_t qmin = a.causal ? k0 : 0;
+// the (query head of the group, query tile) steps that can see key tile t
+// (64 keys): causal from the tile on, window up to W - 1 past its end
+__host__ __device__ __forceinline__ int64_t tile_steps(const Args& a,
+                                                       int64_t t) {
+  const int64_t k0 = t * T64;
+  const int64_t qmin = a.causal ? k0 : 0;
   int64_t qmax = a.sq;
-  if (a.window > 0 && k0 + MT - 1 + a.window < qmax)
-    qmax = k0 + MT - 1 + a.window;
-  int64_t qt_lo = qmin / MT, qt_hi = qmax > qmin ? (qmax + MT - 1) / MT : 0;
-  if (tile_dropped(a, kt)) qt_hi = 0;
+  if (a.window > 0 && k0 + T64 - 1 + a.window < qmax)
+    qmax = k0 + T64 - 1 + a.window;
+  return qmax > qmin
+             ? a.h / a.kv * ((qmax + T64 - 1) / T64 - qmin / T64) : 0;
+}
 
-  float dk[D / 16][4], dv[D / 16][4];
-  zero4<D / 16>(dk);
-  zero4<D / 16>(dv);
-  // the (head, query tile) steps of this key tile, split evenly among
-  // a.splits blocks; each writes partial sums that reduce_kernel adds
-  const int64_t n_q = qt_hi > qt_lo ? qt_hi - qt_lo : 0;
-  const int64_t total = g_heads * n_q;
-  const int64_t it_lo = total * sp / a.splits;
-  const int64_t it_hi = total * (sp + 1) / a.splits;
-  // step it's Q and dO tiles (cp.async) and lse and Delta into buffer buf
-  auto fetch = [&](int64_t it, int buf) {
-    const int64_t hh = kvh * g_heads + it / n_q;
-    const int64_t q0 = (qt_lo + it % n_q) * MT;
-    load_tile_async<D>(Qb + buf * TILE, q, q0, a.sq, a.h, hh);
-    load_tile_async<D>(dOb + buf * TILE, dout, q0, a.sq, a.h, hh);
-    cp_commit();
-    if (threadIdx.x < MT) {
-      int64_t row = q0 + threadIdx.x;
-      lse_b[buf * MT + threadIdx.x] =
-          row < a.sq ? lse[hh * a.sq + row] : INFINITY;
-      dl_b[buf * MT + threadIdx.x] = row < a.sq ? delta[hh * a.sq + row]
-                                                : 0.f;
+// the dK/dV blocks that share key tile t, at most a.cap steps each (a tile
+// that no query sees has one, which writes zeros)
+__host__ __device__ __forceinline__ int tile_splits(const Args& a,
+                                                    int64_t t) {
+  const int64_t n = (tile_steps(a, t) + a.cap - 1) / a.cap;
+  return n < 1 ? 1 : static_cast<int>(n);
+}
+
+// the key tile and split of dK/dV block x (blocks run tile by tile, each
+// tile's splits in order), by one warp: a prefix sum of tile_splits over
+// 32 tiles at a time
+__device__ __forceinline__ void find_tile(const Args& a, int x, int n_kt,
+                                          int* tile, int* split) {
+  const int lane = threadIdx.x % 32;
+  int acc = 0;
+  for (int base = 0; base < n_kt; base += 32) {
+    const int t = base + lane;
+    const int n = t < n_kt ? tile_splits(a, t) : 0;
+    int incl = n;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
     }
-  };
-  if (it_lo < it_hi) fetch(it_lo, 0);
-  for (int64_t it = it_lo; it < it_hi; ++it) {
-    const int buf = (it - it_lo) & 1;
-    const int64_t q0 = (qt_lo + it % n_q) * MT;
-    const bf* Qs = Qb + buf * TILE;
-    const bf* dOs = dOb + buf * TILE;
-    const float* lse_s = lse_b + buf * MT;
-    const float* dl_s = dl_b + buf * MT;
-    if (it + 1 < it_hi) {
-      fetch(it + 1, buf ^ 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    // S^T and dP^T: keys kg .. kg + 15 x queries qh .. qh + 31
-    float s[4][4], dp[4][4];
-    zero4<4>(s);
-    zero4<4>(dp);
-    mma_rows<D>(s, Ks, kg, Qs, qh, lane);
-    mma_rows<D>(dp, Vs, kg, dOs, qh, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kr = kg + g + 8 * r;
-      const int64_t j = k0 + kr;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float p[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = qh + nt * 8 + 2 * t + e;
-          p[e] = live(a, q0 + qc, j)
-                     ? __expf(s[nt][2 * r + e] * a.scale - lse_s[qc]) : 0.f;
-          ds[e] = p[e] * (dp[nt][2 * r + e] - dl_s[qc]);
-        }
-        *reinterpret_cast<uint32_t*>(Ps + kr * LDP + qh + nt * 8 + 2 * t) =
-            pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(dSs + kr * LDP + qh + nt * 8 + 2 * t) =
-            pack_bf16(ds[0], ds[1]);
+    const int start = acc + incl - n;
+    const unsigned hit =
+        __ballot_sync(0xffffffffu, n > 0 && x >= start && x < start + n);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      const int first = __shfl_sync(0xffffffffu, start, src);
+      if (lane == 0) {
+        *tile = base + src;
+        *split = x - first;
       }
+      return;
     }
-    __syncthreads();
-    mma_into<D>(dv, Ps, kg, dOs, dh, lane);
-    mma_into<D>(dk, dSs, kg, Qs, dh, lane);
-    __syncthreads();                 // before the next fetch reuses buf
+    acc += __shfl_sync(0xffffffffu, incl, 31);
   }
-  cp_wait<0>();
-  const int64_t n_el = a.b * a.sk * a.kv * D;
-  float* pk = a.part + sp * n_el + bb * a.sk * a.kv * D;
-  float* pv = pk + a.splits * n_el;
+}
+
+// sum of the products of 8 bfloat16 pairs
+__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt)
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(a[i]), fb = __bfloat1622float2(b[i]);
+    s = fmaf(fa.x, fb.x, s);
+    s = fmaf(fa.y, fb.y, s);
+  }
+  return s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, Args a) {
+  using T = Tiles<D>;
+  constexpr int S = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;    // swizzle atoms: 1 KiB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base, sdO = base + T::TILE;
+  auto sK = [&](int s) { return base + (2 + s) * T::TILE; };
+  auto sV = [&](int s) { return base + (2 + S + s) * T::TILE; };
+  float* xp = reinterpret_cast<float*>(smem + (2 + 2 * S) * T::TILE);
+  const uint32_t q_full = base + T::DQ_BAR;
+  auto kv_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto kv_empty = [&](int s) { return q_full + 8u * (1 + S + s); };
+
+  const int sq = static_cast<int>(a.sq), sk = static_cast<int>(a.sk);
+  const int h = static_cast<int>(a.h);
+  // block order: the last query tile of every (batch, head) first (under
+  // the causal mask the longest walks); heads of one KV head are neighbours
+  const int n_qt = (sq + T64 - 1) / T64;
+  const int bh = gridDim.x / n_qt;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / bh) * T64;
+  const int bi = static_cast<int>(blockIdx.x) % bh / h;
+  const int hi = static_cast<int>(blockIdx.x) % bh % h;
+  const int kvh = hi / (h / static_cast<int>(a.kv));
+  // the key tiles that hold a live key for some row of the tile
+  const int k_hi = a.causal ? min(sk, min(sq, q0 + T64)) : sk;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int kb0 = k_lo / T64;
+  const int n_kt = k_hi > k_lo ? (k_hi + T64 - 1) / T64 - kb0 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(kv_full(s), 1);
+      mbar_init(kv_empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(q_full, 2 * T::TILE);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int64_t key = k0 + kg + g + 8 * r;
-      if (key < a.sk) {
-        int64_t off = (key * a.kv + kvh) * D + dh + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(pk + off) =
-            make_float2(dk[nt][2 * r], dk[nt][2 * r + 1]);
-        *reinterpret_cast<float2*>(pv + off) =
-            make_float2(dv[nt][2 * r], dv[nt][2 * r + 1]);
+      for (int p = 0; p < T::PANELS; ++p) {
+        tma_load(sQ + p * T::PANEL, &tq, q_full, p * 64, q0, hi, bi);
+        tma_load(sdO + p * T::PANEL, &tdo, q_full, p * 64, q0, hi, bi);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % S, n = i / S, key0 = (kb0 + i) * T64;
+        if (n > 0) mbar_wait(kv_empty(s), (n - 1) & 1);
+        mbar_expect_tx(kv_full(s), 2 * T::TILE);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p) {
+          tma_load(sK(s) + p * T::PANEL, &tk, kv_full(s), p * 64, key0, kvh,
+                   bi);
+          tma_load(sV(s) + p * T::PANEL, &tv, kv_full(s), p * 64, key0, kvh,
+                   bi);
+        }
       }
     }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, tq4 = lane & 3;
+  // Consumer 0: S = Q K^T, P = exp2(S scale log2(e) - lse log2(e)), handed
+  // to consumer 1 in float32 through xp.  Consumer 1: dP = dO V^T, dS = P
+  // (dP - Delta), dQ += dS K.  Named barrier 3: P is in xp; 2: consumer 1
+  // has read it.  Consumer 0 releases K and V once S is done, consumer 1
+  // once dQ is, so consumer 0 runs a tile ahead: its S and softmax overlap
+  // consumer 1's products.  Each thread's accumulator rows (element 4j +
+  // e): ra for e < 2, else rb; key 8j + 2 tq4 + (e & 1) of the tile.  The
+  // rows' lse (consumer 0) and Delta (consumer 1) are each thread's own,
+  // read or computed while the first tiles load, and written by the quad's
+  // first thread into the dK/dV kernel's padded buffers (+inf and 0 past
+  // Sq, so that kernel needs no row mask).
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const int row_a = q0 + ra, row_b = q0 + rb;
+  const float scale_log2 = a.scale * LOG2E;
+  const int64_t stat0 = (static_cast<int64_t>(bi) * h + hi) * a.sq_pad + q0;
+  if (wg == 0) {
+    const float* lr = a.lse + (static_cast<int64_t>(bi) * h + hi) * sq;
+    const float lse_a =
+        row_a < sq ? lr[lse_row(a, row_a)] * LOG2E : INFINITY;
+    const float lse_b =
+        row_b < sq ? lr[lse_row(a, row_b)] * LOG2E : INFINITY;
+    if (tq4 == 0) {
+      a.lse2[stat0 + ra] = lse_a;
+      a.lse2[stat0 + rb] = lse_b;
+    }
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % S;
+      mbar_wait(kv_full(s), (i / S) & 1);
+      float x[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * T::PANEL + (ks % 4) * 32;
+        wgmma_ss_n64(x, smem_desc(sQ + off, 16, 1024),
+                     smem_desc(sK(s) + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      mbar_arrive(kv_empty(s));
+      const int c0 = (kb0 + i) * T64;
+      if (c0 + T64 - 1 >= sk || (a.causal && c0 + T64 - 1 > q0) ||
+          (a.window > 0 && c0 <= q0 + T64 - 1 - a.window)) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int row = (j >> 1) & 1 ? row_b : row_a;
+          const int col = c0 + 8 * (j >> 2) + 2 * tq4 + (j & 1);
+          bool ok = col < sk;
+          if (a.causal) ok = ok && col <= row;
+          if (a.window > 0) ok = ok && col > row - a.window;
+          if (!ok) x[j] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        x[j] = exp2_ftz(fmaf(x[j], scale_log2,
+                             -((j >> 1) & 1 ? lse_b : lse_a)));
+      if (i > 0) bar_sync(2, 2 * WG);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) xp[j * WG + t] = x[j];
+      bar_arrive(3, 2 * WG);
+    }
+    return;
+  }
+  // Delta = rowsum(dO * O) of rows ra and rb, a quarter of D a thread
+  float dl_a = 0.f, dl_b = 0.f;
+  {
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
+    const __nv_bfloat16* d_o = static_cast<const __nv_bfloat16*>(a.dout);
+    const int64_t oa = ((static_cast<int64_t>(bi) * sq + row_a) * h + hi) * D
+                       + tq4 * (D / 4);
+    const int64_t ob = oa + static_cast<int64_t>(8) * h * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      if (row_a < sq)
+        dl_a += dot8(reinterpret_cast<const uint4*>(o + oa)[c],
+                     reinterpret_cast<const uint4*>(d_o + oa)[c]);
+      if (row_b < sq)
+        dl_b += dot8(reinterpret_cast<const uint4*>(o + ob)[c],
+                     reinterpret_cast<const uint4*>(d_o + ob)[c]);
+    }
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+      dl_a += __shfl_xor_sync(0xffffffffu, dl_a, m);
+      dl_b += __shfl_xor_sync(0xffffffffu, dl_b, m);
+    }
+    if (delta_dropped(a)) dl_a = dl_b = 0.f;
+    if (tq4 == 0) {
+      a.delta[stat0 + ra] = dl_a;
+      a.delta[stat0 + rb] = dl_b;
+    }
+  }
+  mbar_wait(q_full, 0);
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % S;
+    mbar_wait(kv_full(s), (i / S) & 1);
+    float x[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * T::PANEL + (ks % 4) * 32;
+      wgmma_ss_n64(x, smem_desc(sdO + off, 16, 1024),
+                   smem_desc(sV(s) + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    bar_sync(3, 2 * WG);
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      x[j] = xp[j * WG + t] * (x[j] - ((j >> 1) & 1 ? dl_b : dl_a));
+    if (i + 1 < n_kt) bar_arrive(2, 2 * WG);
+    // dS in bf16: the A registers of the four k16 steps (keys) of dS K
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+    // dQ += dS K, K as the MN-major operand
+    wgmma_fence();
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_nd<D>(dq, da[kk],
+                     smem_desc(sK(s) + kk * 16 * ROW_BYTES, T::PANEL, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(kv_empty(s));
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq);
+  const int64_t oa = ((static_cast<int64_t>(bi) * sq + row_a) * h + hi) * D;
+  const int64_t ob = ((static_cast<int64_t>(bi) * sq + row_b) * h + hi) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq4;
+    if (row_a < sq)
+      *reinterpret_cast<uint32_t*>(out + oa + col) =
+          pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
+    if (row_b < sq)
+      *reinterpret_cast<uint32_t*>(out + ob + col) =
+          pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, Args a) {
+  using T = Tiles<D>;
+  constexpr int S = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;    // swizzle atoms: 1 KiB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + T::TILE;
+  auto sQ = [&](int s) { return base + (2 + s) * T::TILE; };
+  auto sdO = [&](int s) { return base + (2 + S + s) * T::TILE; };
+  float* stats = reinterpret_cast<float*>(smem + (2 + 2 * S) * T::TILE);
+  float* xp = stats + S * 2 * T64;
+  const uint32_t kv_full = base + T::DKV_BAR;
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + S + s); };
+
+  // blockIdx.x is the split sp of key tile kt (the launcher gives each tile
+  // as many as its steps need at a.cap steps a block)
+  const int n_kt = static_cast<int>((a.sk + T64 - 1) / T64);
+  __shared__ int where[2];
+  if (threadIdx.x < 32) find_tile(a, blockIdx.x, n_kt, &where[0], &where[1]);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int kt = where[0], sp = where[1];
+  const int kvh = blockIdx.y, bi = blockIdx.z;
+  const int h = static_cast<int>(a.h), group = h / static_cast<int>(a.kv);
+  const int k0 = kt * T64;
+  // the query tiles that can see keys k0 .. k0 + 63
+  const int64_t qmin = a.causal ? k0 : 0;
+  int64_t qmax = a.sq;
+  if (a.window > 0 && k0 + T64 - 1 + static_cast<int64_t>(a.window) < qmax)
+    qmax = k0 + T64 - 1 + a.window;
+  const int qt_lo = static_cast<int>(qmin / T64);
+  const int n_q = qmax > qmin && !tile_dropped(a, kt, n_kt)
+                      ? static_cast<int>((qmax + T64 - 1) / T64) - qt_lo : 0;
+  // this block's share of the tile's (head, query tile) steps; it writes
+  // partial sums that dkv_reduce_kernel adds
+  const int64_t total = static_cast<int64_t>(group) * n_q;
+  const int n_sp = tile_splits(a, kt);
+  const int it_lo = static_cast<int>(total * sp / n_sp);
+  const int n_it = static_cast<int>(total * (sp + 1) / n_sp) - it_lo;
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(kv_full, 2 * T::TILE);
+#pragma unroll
+      for (int p = 0; p < T::PANELS; ++p) {
+        tma_load(sK + p * T::PANEL, &tk, kv_full, p * 64, k0, kvh, bi);
+        tma_load(sV + p * T::PANEL, &tv, kv_full, p * 64, k0, kvh, bi);
+      }
+      for (int n = 0; n < n_it; ++n) {
+        const int s = n % S, it = it_lo + n;
+        const int hh = kvh * group + it / n_q;
+        const int q0 = (qt_lo + it % n_q) * T64;
+        if (n >= S) mbar_wait(empty(s), (n / S - 1) & 1);
+        mbar_expect_tx(full(s), 2 * T::TILE + T::STAT);
+#pragma unroll
+        for (int p = 0; p < T::PANELS; ++p) {
+          tma_load(sQ(s) + p * T::PANEL, &tq, full(s), p * 64, q0, hh, bi);
+          tma_load(sdO(s) + p * T::PANEL, &tdo, full(s), p * 64, q0, hh, bi);
+        }
+        const int64_t off = (static_cast<int64_t>(bi) * h + hh) * a.sq_pad + q0;
+        float* st = stats + s * 2 * T64;
+        bulk_load(smem_u32(st), a.lse2 + off, T64 * 4, full(s));
+        bulk_load(smem_u32(st + T64), a.delta + off, T64 * 4, full(s));
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  // Consumer 0: S^T = K Q^T, P^T, dV += P^T dO.  Consumer 1: dP^T = V dO^T,
+  // dS^T = P^T (dP^T - Delta), dK += dS^T Q.  Named barrier 2: P^T is in
+  // xp; 1: consumer 1 has read it.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, tq4 = lane & 3;
+  // this thread's accumulator rows are keys ka, kb of the tile (element
+  // 4j + e: key ka for e < 2, else kb; query 8j + 2 tq4 + (e & 1))
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  const float scale_log2 = a.scale * LOG2E;
+  const uint32_t op_a = wg == 0 ? sK : sV;       // S^T or dP^T
+  float acc[D / 2];                              // dV or dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int n = 0; n < n_it; ++n) {
+    const int s = n % S, it = it_lo + n;
+    const int q0 = (qt_lo + it % n_q) * T64;
+    const float* st = stats + s * 2 * T64;
+    const uint32_t op_b = wg == 0 ? sQ(s) : sdO(s);
+    mbar_wait(full(s), (n / S) & 1);
+    float x[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * T::PANEL + (ks % 4) * 32;
+      wgmma_ss_n64(x, smem_desc(op_a + off, 16, 1024),
+                   smem_desc(op_b + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (wg == 0) {
+      if ((a.causal && k0 + T64 - 1 > q0) ||
+          (a.window > 0 && k0 <= q0 + T64 - 1 - a.window)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = (i >> 1) & 1 ? key_b : key_a;
+          const int qi = q0 + 8 * (i >> 2) + 2 * tq4 + (i & 1);
+          bool ok = true;
+          if (a.causal) ok = key <= qi;
+          if (a.window > 0) ok = ok && key > qi - a.window;
+          if (!ok) x[i] = -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] = exp2_ftz(fmaf(x[i], scale_log2,
+                             -st[8 * (i >> 2) + 2 * tq4 + (i & 1)]));
+      if (n > 0) bar_sync(1, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xp[i * WG + t] = x[i];
+      bar_arrive(2, 2 * WG);
+    } else {
+      bar_sync(2, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] = xp[i * WG + t] *
+               (x[i] - st[T64 + 8 * (i >> 2) + 2 * tq4 + (i & 1)]);
+      if (n + 1 < n_it) bar_arrive(1, 2 * WG);
+    }
+    // P^T or dS^T in bf16: the A registers of the four k16 steps (queries)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+    // dV += P^T dO or dK += dS^T Q, dO or Q as the MN-major operand
+    const uint32_t op_c = wg == 0 ? sdO(s) : sQ(s);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_nd<D>(acc, pa[kk],
+                     smem_desc(op_c + kk * 16 * ROW_BYTES, T::PANEL, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty(s));
+  }
+  // this split's partial sums: dK (consumer 1) in part[sp], dV (consumer 0)
+  // in part[splits + sp]
+  const int64_t n_el = a.b * a.sk * a.kv * D;
+  float* out = a.part + ((wg == 0 ? a.splits : 0) + sp) * n_el +
+               static_cast<int64_t>(bi) * a.sk * a.kv * D;
+  const int64_t oa = (static_cast<int64_t>(key_a) * a.kv + kvh) * D;
+  const int64_t ob = (static_cast<int64_t>(key_b) * a.kv + kvh) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * tq4;
+    if (key_a < a.sk)
+      *reinterpret_cast<float2*>(out + oa + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (key_b < a.sk)
+      *reinterpret_cast<float2*>(out + ob + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
 }
 
 // dK = scale * (the splits' dK partials added in split order), dV the
-// same without the scale; two elements a thread, bfloat16 out
+// same without the scale, bfloat16 out.  A block takes red_keys<D> keys of
+// one (key tile, KV head, batch), whose splits its first thread counts;
+// eight elements a thread.
+template <int D>
+__host__ __device__ constexpr int red_keys() { return 8 * THREADS / D; }
+
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(Args a, int64_t n_el) {
-  const int64_t pairs = n_el / 2;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(THREADS) + threadIdx.x;
-       i < pairs; i += static_cast<int64_t>(gridDim.x) * THREADS) {
+dkv_reduce_kernel(Args a, int64_t n_el) {
+  constexpr int RK = red_keys<D>();
+  const int kt = blockIdx.x / (T64 / RK);
+  const int key0 = kt * T64 + blockIdx.x % (T64 / RK) * RK;
+  const int rows = min(RK, static_cast<int>(a.sk) - key0);
+  __shared__ int splits;
+  if (threadIdx.x == 0) splits = tile_splits(a, kt);
+  __syncthreads();
+  const int n_sp = splits;
+  const int64_t first =
+      ((static_cast<int64_t>(blockIdx.z) * a.sk + key0) * a.kv + blockIdx.y)
+      * (D / 2);                                  // in pairs
+  const int64_t row_pairs = a.kv * (D / 2);
+  const float2* part = reinterpret_cast<const float2*>(a.part);
+  for (int e = threadIdx.x; e < rows * (D / 2); e += THREADS) {
+    const int64_t i = first + e / (D / 2) * row_pairs + e % (D / 2);
     float2 k = make_float2(0.f, 0.f), v = make_float2(0.f, 0.f);
-    for (int sp = 0; sp < a.splits; ++sp) {
-      float2 pk = reinterpret_cast<const float2*>(a.part + sp * n_el)[i];
-      float2 pv = reinterpret_cast<const float2*>(
-          a.part + (a.splits + sp) * n_el)[i];
+    for (int sp = 0; sp < n_sp; ++sp) {
+      const float2 pk = part[sp * n_el / 2 + i];
+      const float2 pv = part[(a.splits + sp) * n_el / 2 + i];
       k.x += pk.x; k.y += pk.y; v.x += pv.x; v.y += pv.y;
     }
     reinterpret_cast<uint32_t*>(a.dk)[i] = pack_bf16(k.x * a.scale,
@@ -915,47 +947,53 @@ reduce_kernel(Args a, int64_t n_el) {
 }
 
 template <int D>
-constexpr int dq_mma_smem() {
-  return 6 * MT * (D + 8) * 2 + MT * LDP * 2 + 6 * MT * 4;
-}
-template <int D>
-constexpr int dkv_mma_smem() {
-  return 6 * MT * (D + 8) * 2 + 2 * MT * LDP * 2 + 4 * MT * 4;
-}
-
-template <int D>
-int launch_mma(const Args& a, cudaStream_t stream) {
-  cudaError_t err;
-  err = cudaFuncSetAttribute(dq_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_mma_smem<D>());
+int launch_wgmma(const Args& a, int64_t dkv_blocks, cudaStream_t stream) {
+  using T = Tiles<D>;
+  const int b = static_cast<int>(a.b), sq = static_cast<int>(a.sq);
+  const int sk = static_cast<int>(a.sk), h = static_cast<int>(a.h);
+  const int kv = static_cast<int>(a.kv);
+  const Strides qs{a.sq * a.h * D, a.h * D, D};
+  const Strides ks{a.sk * a.kv * D, a.kv * D, D};
+  const int64_t blocks = (a.sq + T64 - 1) / T64 * a.b * a.h;
+  if (blocks > INT_MAX) return -1;
+  // set on every launch: the limit belongs to the device that is current.
+  // First, too: a runtime call binds the device's context to the calling
+  // thread (autograd's backward runs on a thread of its own), which
+  // cuTensorMapEncodeTiled below needs.
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::DQ_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkv_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::DKV_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dkv_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_mma_smem<D>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 gq(static_cast<unsigned>((a.sq + MT - 1) / MT),
-          static_cast<unsigned>(a.h), static_cast<unsigned>(a.b));
-  dq_mma_kernel<D><<<gq, THREADS, dq_mma_smem<D>(), stream>>>(a);
+  CUtensorMap mq, mdo, mk, mv;
+  if (!tensor_map(&mq, a.q, D, sq, h, b, qs, T64) ||
+      !tensor_map(&mdo, a.dout, D, sq, h, b, qs, T64) ||
+      !tensor_map(&mk, a.k, D, sk, kv, b, ks, T64) ||
+      !tensor_map(&mv, a.v, D, sk, kv, b, ks, T64))
+    return -2;
+  dq_wgmma_kernel<D><<<static_cast<int>(blocks), WG_THREADS, T::DQ_SMEM,
+                       stream>>>(mq, mdo, mk, mv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 gk(static_cast<unsigned>((a.sk + MT - 1) / MT),
-          static_cast<unsigned>(a.kv),
-          static_cast<unsigned>(a.b * a.splits));
-  dkv_mma_kernel<D><<<gk, THREADS, dkv_mma_smem<D>(), stream>>>(a);
+  const dim3 gk(static_cast<unsigned>(dkv_blocks), static_cast<unsigned>(a.kv),
+                static_cast<unsigned>(a.b));
+  dkv_wgmma_kernel<D><<<gk, WG_THREADS, T::DKV_SMEM, stream>>>(mq, mdo, mk,
+                                                               mv, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_el = a.b * a.sk * a.kv * D;
-  int64_t blocks = (n_el / 2 + THREADS - 1) / THREADS;
-  if (blocks > 4096) blocks = 4096;
-  reduce_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a,
-                                                                       n_el);
+  const dim3 gr(
+      static_cast<unsigned>((a.sk + T64 - 1) / T64 * (T64 / red_keys<D>())),
+      static_cast<unsigned>(a.kv), static_cast<unsigned>(a.b));
+  dkv_reduce_kernel<D><<<gr, THREADS, 0, stream>>>(a, a.b * a.sk * a.kv * D);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 constexpr int dq_smem() {
-  return (2 * BQ * D + 2 * BK * (D + 1) + BQ * BK) * 4;
+  return (2 * BQ * D + 2 * BK * (D + 1) + BQ * BK + 2 * BQ) * 4;
 }
 template <int D>
 constexpr int dkv_smem() {
@@ -993,79 +1031,125 @@ int launch_f32(const Args& a, int64_t d, cudaStream_t stream) {
   }
 }
 
-int launch_bf16(const Args& a, int64_t d, cudaStream_t stream) {
+int launch_bf16(const Args& a, int64_t d, int64_t dkv_blocks,
+                cudaStream_t stream) {
   switch (d) {
-    case 64: return launch_mma<64>(a, stream);
-    case 128: return launch_mma<128>(a, stream);
-    case 256: return launch_mma<256>(a, stream);
+    case 64: return launch_wgmma<64>(a, dkv_blocks, stream);
+    case 128: return launch_wgmma<128>(a, dkv_blocks, stream);
+    case 256: return launch_wgmma<256>(a, dkv_blocks, stream);
     default: return -1;
   }
 }
 
-// blocks that share one key tile's dK/dV work in the bfloat16 kernel:
-// enough for about two blocks per SM of the current device, at most 8
-int dkv_splits(int64_t b, int64_t sk, int64_t kv, int* splits) {
+// The bfloat16 dK/dV split: a.cap, the most steps a block takes, is the
+// least that keeps the grid to one block per SM of the current device (one
+// wave) and a tile's blocks to 8; a.splits is then the most blocks a tile
+// has, and *blocks the blocks of one (batch, KV head).  Under the causal
+// mask the first key tiles see 16 times the steps of the last (at
+// gemma3-1b's train shape), so they get more blocks.  One wave: more blocks
+// write and add more float32 partial sums (2 x splits x B Sk KV D), and
+// one wave beat more on the H100.
+int plan_dkv(Args* a, int64_t* blocks) {
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t base = (sk + MT - 1) / MT * kv * b;
-  if (base < 1) base = 1;
-  const int64_t n = (2 * sms + base - 1) / base;
-  *splits = static_cast<int>(n < 1 ? 1 : n > 8 ? 8 : n);
+  const int64_t n_kt = (a->sk + T64 - 1) / T64;
+  int64_t most = 1;
+  for (int64_t t = 0; t < n_kt; ++t)
+    most = tile_steps(*a, t) > most ? tile_steps(*a, t) : most;
+  auto count = [&](int64_t cap) {
+    a->cap = cap;
+    int64_t n = 0;
+    for (int64_t t = 0; t < n_kt; ++t) n += tile_splits(*a, t);
+    return n;
+  };
+  int64_t lo = (most + 7) / 8, hi = most;     // the blocks fall as cap grows
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (count(mid) * a->kv * a->b <= sms) hi = mid;
+    else lo = mid + 1;
+  }
+  *blocks = count(lo);
+  a->splits = 1;
+  for (int64_t t = 0; t < n_kt; ++t)
+    a->splits = tile_splits(*a, t) > a->splits ? tile_splits(*a, t)
+                                               : a->splits;
   return 0;
 }
 
-int run(Args a, int64_t d, int dtype, cudaStream_t stream) {
-  a.splits = 1;
-  if (dtype == 0) {
-    int err = dkv_splits(a.b, a.sk, a.kv, &a.splits);
-    return err ? err : launch_bf16(a, d, stream);
+int64_t padded(int64_t sq) { return (sq + T64 - 1) / T64 * T64; }
+
+// lay the float32 workspace out (see repro_flash_attention_bwd_workspace)
+// and launch
+int run(Args a, int64_t d, int dtype, float* work, cudaStream_t stream) {
+  if (a.b * a.h > 65535 || a.sq > (1 << 30) ||
+      a.sk > (1 << 30) || a.kv <= 0 || a.h % a.kv)
+    return -1;
+  if (dtype == 1) {
+    a.delta = work;
+    return launch_f32(a, d, stream);
   }
-  if (dtype == 1) return launch_f32(a, d, stream);
-  return -1;
+  if (dtype != 0) return -1;
+  int64_t dkv_blocks;
+  const int err = plan_dkv(&a, &dkv_blocks);
+  if (err) return err;
+  if (dkv_blocks > INT_MAX) return -1;
+  a.sq_pad = padded(a.sq);
+  a.lse2 = work;
+  a.delta = work + a.b * a.h * a.sq_pad;
+  a.part = a.delta + a.b * a.h * a.sq_pad;
+  return launch_bf16(a, d, dkv_blocks, stream);
 }
 
 }  // namespace
 
-// float32 scratch that repro_flash_attention_bwd needs in `part`: the
-// bfloat16 kernel's dK and dV partial sums (2 x splits x B Sk KV D), none
-// for float32.  -1 if the device cannot be queried.
-extern "C" int64_t repro_flash_attention_bwd_workspace(int64_t b, int64_t sk,
-                                                       int64_t kv, int64_t d,
-                                                       int dtype) {
-  if (dtype != 0) return 0;
-  int splits;
-  if (dkv_splits(b, sk, kv, &splits)) return -1;
-  return 2 * splits * b * sk * kv * d;
+// float32 scratch that repro_flash_attention_bwd needs in `work` for these
+// shapes and masks: for bfloat16 the padded lse and Delta (B x H x Sq
+// rounded up to 64, each) and the dK and dV partial sums (2 x splits x B
+// Sk KV D, splits as plan_dkv picks it on the current device); for float32
+// Delta (B x H x Sq).  -1 if the device cannot be queried.
+extern "C" int64_t repro_flash_attention_bwd_workspace(
+    int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv, int64_t d,
+    int dtype, int causal, int window) {
+  if (dtype != 0) return b * h * sq;
+  if (kv <= 0 || h % kv) return -1;
+  Args a{};
+  a.b = b, a.sq = sq, a.sk = sk, a.h = h, a.kv = kv;
+  a.causal = causal, a.window = window > 0 ? window : 0;
+  int64_t blocks;
+  if (plan_dkv(&a, &blocks)) return -1;
+  return 2 * b * h * padded(sq) + 2 * a.splits * b * sk * kv * d;
 }
 
 #ifndef REPRO_K4B_PLANTED_FAULTS
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D), contiguous;
-// lse, delta float32 (B, H, Sq) scratch, part the workspace above.  dtype 0
-// bfloat16, 1 float32.  Returns 0 or a CUDA error code (-1: unsupported
-// head_dim or dtype).
+// lse float32 (B, H, Sq) from K4's forward; work the workspace above.
+// dtype 0 bfloat16, 1 float32.  Returns 0 or a CUDA error code (-1: a
+// head_dim, dtype or shape the kernel does not take; -2: a bfloat16 tensor
+// map cannot be built).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    float* part, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* work, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
     int64_t d, int dtype, int causal, int window, void* stream) {
-  Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, part, b, sq, sk, h, kv,
-         causal, window, 1, 1.0f / sqrtf(static_cast<float>(d))};
-  return run(a, d, dtype, static_cast<cudaStream_t>(stream));
+  Args a{q, k, v, o, dout, lse, dq, dk, dv, nullptr, nullptr, nullptr, b, sq,
+         sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
+         1.0f / sqrtf(static_cast<float>(d))};
+  return run(a, d, dtype, work, static_cast<cudaStream_t>(stream));
 }
 #else
 // the same with a planted fault (see the top of the file)
 extern "C" int repro_flash_attention_bwd_planted(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    float* part, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* work, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
     int64_t d, int dtype, int causal, int window, int fault,
     int64_t fault_tile, void* stream) {
-  Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, part, b, sq, sk, h, kv,
-         causal, window, 1, 1.0f / sqrtf(static_cast<float>(d)), fault,
-         fault_tile};
-  return run(a, d, dtype, static_cast<cudaStream_t>(stream));
+  Args a{q, k, v, o, dout, lse, dq, dk, dv, nullptr, nullptr, nullptr, b, sq,
+         sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
+         1.0f / sqrtf(static_cast<float>(d)), fault, fault_tile};
+  return run(a, d, dtype, work, static_cast<cudaStream_t>(stream));
 }
 #endif

@@ -10,13 +10,15 @@ raises.  The kernel reads q/k/v through their strides, so the caller's
 across a GQA group; in bfloat16 it reads them through TMA tensor maps,
 which the launcher builds from the same pointers and strides at each
 call.  When autograd needs its gradient, the call goes through a
-``torch.autograd.Function`` that saves q, k, v and the output; its
-backward is ``flash_attention_bwd``, which launches
-``flash_attention_bwd.cu`` on CUDA tensors (dQ with lse and Delta, then
-dK and dV) and takes ``ref.flash_attention_bwd_ref`` on CPU
-tensors.  ``launches`` counts K4's launches and ``bwd_launches`` K4b's
-(one per backward call).  ``flash_attention_bwd_planted`` runs a variant
-of K4b built with a planted fault, for the checks that must fail on it.
+``torch.autograd.Function`` whose forward asks K4 for each row's
+log-sum-exp too and saves q, k, v, the output and lse; its backward is
+``flash_attention_bwd``, which launches ``flash_attention_bwd.cu`` on
+CUDA tensors (dQ with Delta, then dK and dV, from the saved lse) and
+takes ``ref.flash_attention_bwd_ref`` on CPU tensors.  Without autograd
+no lse is written (``flash_attention_with_lse`` asks for it).
+``launches`` counts K4's launches and ``bwd_launches`` K4b's (one per
+backward call).  ``flash_attention_bwd_planted`` runs a variant of K4b
+built with a planted fault, for the checks that must fail on it.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 def _lib():
     fn = build.load("flash_attention").repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
                        + [ctypes.c_int64] * 9 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -88,20 +90,20 @@ def _check_cuda(q, k, v) -> None:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K4 forward, K4b backward."""
+    """K4 forward (with lse), K4b backward (from the saved lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
-                                         window=ctx.window)
+                                         window=ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -119,33 +121,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, causal, window)
 
 
-def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0):
+    """``flash_attention`` without autograd, and each row's log-sum-exp of
+    the scaled, masked scores: (out (B, Sq, H, D), lse float32 (B, H, Sq),
+    +inf for a row with no live key).  One K4 launch on CUDA tensors."""
+    _check_args(q, k, v)
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
+def _forward(q, k, v, causal: bool, window: int, with_lse: bool = False):
+    """The output, or (output, lse) with ``with_lse``."""
     global launches
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window)
+                                        window=window, return_lse=with_lse)
     _check_cuda(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if sk == 0:
-        return out.zero_()
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0 or sk == 0:
+        out.zero_()
+        return (out, lse.fill_(torch.inf)) if with_lse else out
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kvh, d, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], _DTYPE_CODE[q.dtype], int(causal),
-                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
+                 None if lse is None else lse.data_ptr(), b, sq, sk, h, kvh,
+                 d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 _DTYPE_CODE[q.dtype], int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: CUDA launch failed (error "
                            f"{err})")
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
 
 
 def _bwd_fn(planted: bool):
@@ -160,61 +175,81 @@ def _bwd_fn(planted: bool):
         fn.argtypes = _BWD_ARGS + ([ctypes.c_int, ctypes.c_int64] if planted
                                    else []) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_int]
+        ws.argtypes = [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
         ws.restype = ctypes.c_int64
     return fn, ws
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, window: int = 0):
+                        causal: bool = True, window: int = 0,
+                        lse: torch.Tensor = None):
     """Gradients of ``flash_attention(q, k, v)`` at ``do``, given its output
-    ``o``: (dq (B, Sq, H, D), dk, dv (B, Sk, KV, D)) in the inputs' dtype.
-    K4b on CUDA tensors, ``ref.flash_attention_bwd_ref`` on CPU tensors."""
-    return _backward(q, k, v, o, do, causal, window, ())
+    ``o`` and, where the caller has it, its row log-sum-exp ``lse``
+    (float32 (B, H, Sq), as ``flash_attention_with_lse`` gives it): (dq
+    (B, Sq, H, D), dk, dv (B, Sk, KV, D)) in the inputs' dtype.  K4b on
+    CUDA tensors (without ``lse``, one K4 launch writes it first; K4b never
+    recomputes it), ``ref.flash_attention_bwd_ref`` on CPU tensors."""
+    return _backward(q, k, v, o, do, causal, window, (), lse)
 
 
 def flash_attention_bwd_planted(q, k, v, o, do, *, causal: bool = True,
-                                window: int = 0, fault: int, tile: int = 1):
+                                window: int = 0, fault: int, tile: int = 1,
+                                lse: torch.Tensor = None):
     """``flash_attention_bwd`` on CUDA tensors through the variant of K4b
     built with ``REPRO_K4B_PLANTED_FAULTS``: ``fault`` 1 leaves key tile
     ``tile`` (-1: the last) out of the dK/dV work, 2 leaves Delta out of
-    dS.  Not counted in ``bwd_launches``."""
+    dS, 3 reads each row's lse from the next row.  Not counted in
+    ``bwd_launches``."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd_planted: CUDA tensors only")
-    return _backward(q, k, v, o, do, causal, window, (fault, tile))
+    return _backward(q, k, v, o, do, causal, window, (fault, tile), lse)
 
 
-def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's and the 16-byte
+    loads' requirement), copied only where it is not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
+              lse):
     global bwd_launches
     _check_args(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and do must have q's shape")
     if not (o.device == do.device == q.device):
         raise ValueError("flash_attention_bwd: o, do not on q's device")
-    if q.device.type == "cpu":
-        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                            window=window)
-    _check_cuda(q, k, v)
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
-    q, k, v, o, do = (t.to(q.dtype).contiguous() for t in (q, k, v, o, do))
+    if lse is not None and (lse.shape != (b, h, sq)
+                            or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be (B, H, Sq) = "
+                         f"{(b, h, sq)} on q's device")
+    if q.device.type == "cpu":
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                            window=window, lse=lse)
+    _check_cuda(q, k, v)
+    q, k, v, o, do = (_aligned(t.to(q.dtype)) for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if lse is None:
+        lse = _forward(q, k, v, causal, window, with_lse=True)[1]
+    lse = lse.to(torch.float32).contiguous()
     fn, ws = _bwd_fn(bool(planted))
-    n_part = ws(b, sk, kvh, d, _DTYPE_CODE[q.dtype])
-    if n_part < 0:
+    n_work = ws(b, sq, sk, h, kvh, d, _DTYPE_CODE[q.dtype], int(causal),
+                int(window))
+    if n_work < 0:
         raise RuntimeError("flash_attention_bwd: cannot query the device")
-    part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), part.data_ptr(), b, sq, sk, h,
-             kvh, d, _DTYPE_CODE[q.dtype], int(causal), int(window),
-             *planted, torch.cuda.current_stream(q.device).cuda_stream)
+             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), work.data_ptr(), b, sq, sk, h, kvh, d,
+             _DTYPE_CODE[q.dtype], int(causal), int(window), *planted,
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd: CUDA launch failed (error "
                            f"{err})")

@@ -17,23 +17,28 @@ import torch
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0
-                        ) -> torch.Tensor:
-    """q (B, Sq, H, D); k, v (B, Sk, KV, D), H % KV == 0 -> (B, Sq, H, D)."""
+                        *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """q (B, Sq, H, D); k, v (B, Sk, KV, D), H % KV == 0 -> (B, Sq, H, D).
+
+    With ``return_lse``, also each row's log-sum-exp of the scaled, masked
+    scores, float32 (B, H, Sq) (float64 for float64 inputs): +inf for a row
+    with no live key, for which exp(s - lse) is 0, as K4 writes it."""
     b, sq, h, d = q.shape
-    p, denom = _probs(q, k, causal, window)
+    p, denom, lse = _probs(q, k, causal, window)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(_compute_dtype(q)))
     o = o / denom.permute(0, 3, 1, 2)[..., None]
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    o = o.reshape(b, sq, h, d).to(q.dtype)
+    return (o, lse.reshape(b, h, sq)) if return_lse else o
 
 
 def _compute_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.promote_types(q.dtype, torch.float32)
 
 
-def _probs(q, k, causal: bool, window: int):
-    """Unnormalised softmax numerators p (B, KV, G, Sq, Sk), 0 where masked,
-    and their row sums clamped to 1e-30 (a fully masked row gives 0)."""
+def _scores(q, k, causal: bool, window: int):
+    """Scaled scores (B, KV, G, Sq, Sk), -1e30 where masked, and the mask
+    (Sq, Sk)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     ct = _compute_dtype(q)
@@ -46,28 +51,44 @@ def _probs(q, k, causal: bool, window: int):
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    s = torch.where(mask, s, -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.where(mask, s, -1e30), mask
+
+
+def _probs(q, k, causal: bool, window: int):
+    """Unnormalised softmax numerators p (B, KV, G, Sq, Sk), 0 where masked,
+    their row sums clamped to 1e-30 (a fully masked row gives 0), and the
+    rows' log-sum-exp (B, KV, G, Sq), +inf for a fully masked row."""
+    s, mask = _scores(q, k, causal, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)
-    return p, p.sum(dim=-1).clamp_min(1e-30)               # (B, KV, G, Sq)
+    total = p.sum(dim=-1)
+    lse = torch.where(total > 0, m[..., 0] + torch.log(total), torch.inf)
+    return p, total.clamp_min(1e-30), lse
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, *, causal: bool = True,
-                            window: int = 0):
+                            window: int = 0, lse: torch.Tensor = None):
     """Gradients of ``flash_attention_ref`` at ``do``: (dq (B, Sq, H, D),
     dk, dv (B, Sk, KV, D)) in the inputs' dtypes.  ``o`` is the forward's
     output, as the kernel reads it: P = softmax(S), dV = P^T dO,
     dP = dO V^T, dS = P * (dP - Delta) with Delta_i = sum(dO_i * O_i),
     dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); dK and dV summed over each
-    KV head's G query heads."""
+    KV head's G query heads.  Given the forward's ``lse`` (B, H, Sq), P is
+    exp(S - lse), as K4b forms it; else the softmax of S."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     ct = _compute_dtype(q)
-    p, denom = _probs(q, k, causal, window)
-    p = p / denom[..., None]                               # (B,KV,G,Sq,Sk)
+    if lse is None:
+        p, denom, _ = _probs(q, k, causal, window)
+        p = p / denom[..., None]                           # (B,KV,G,Sq,Sk)
+    else:
+        s, mask = _scores(q, k, causal, window)
+        p = torch.where(mask, torch.exp(
+            s - lse.to(ct).reshape(b, kvh, g, sq)[..., None]), 0.0)
     qf = q.to(ct).reshape(b, sq, kvh, g, d)
     dof = do.to(ct).reshape(b, sq, kvh, g, d)
     delta = (dof * o.to(ct).reshape(b, sq, kvh, g, d)).sum(-1)

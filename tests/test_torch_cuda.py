@@ -1,8 +1,10 @@
 """The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher, both
 forms), K2 (DDT gather, both bodies), K3 (checksum), K4 (flash
-attention) and K4b (its backward; tolerances at ``K4B_REL``) against
-their plain versions, a small train step on the card against the CPU, ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls
-on the CPU, the serving path's kernel launches, and the fabric and MPI
+attention, with the lse it writes for K4b; tolerance at ``LSE_ATOL``) and
+K4b (its backward; tolerances at ``K4B_REL``) against their plain
+versions, a small train step on the card against the CPU,
+``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls on the
+CPU, the serving path's kernel launches, and the fabric and MPI
 layer (threefry draws, a lossy SLMP fabric tick for tick, a rendezvous
 with NIC unpack) on the card against the CPU.  Tolerance: exact (0)
 for K1-K3; K2 compares bit patterns.  K4 holds two limits at once: the
@@ -550,18 +552,31 @@ K4B_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
     (2, 333, 333, 4, 2, 64, True, 40, torch.float32),       # ragged, window
     (1, 130, 200, 4, 4, 128, False, 0, torch.bfloat16),     # not causal
     (2, 100, 100, 4, 1, 256, True, 0, torch.float32),       # Sq < BQ tiles
+    (2, 333, 333, 4, 2, 64, True, 40, torch.bfloat16),      # ragged, D 64
+    # not causal, window 16 over 64 keys: rows 79 to 199 see no key
+    (1, 200, 64, 2, 1, 128, False, 16, torch.bfloat16),
+    (1, 200, 64, 2, 1, 64, False, 16, torch.float32),
+    # 33 key tiles: the dK/dV blocks' tile lookup takes two warp passes
+    (1, 2100, 2100, 4, 2, 128, True, 0, torch.bfloat16),
 ]
+# K4's lse against the plain lse: float32 sums of up to 1,024 exponentials
+# in another order, and in bfloat16 the special-function unit's exp2 and
+# log2 (relative error about 2**-22), on values up to ~10: a few 1e-6.  A
+# row with no live key must be +inf in both.
+LSE_ATOL = 1e-4
 
 
 def _k4b_inputs(case, cuda):
+    """q, k, v, K4's output and lse (the forward that autograd saves), dO."""
     b, sq, sk, h, kv, d, causal, window, dtype = case
     g = torch.Generator(device=cuda).manual_seed(sq + d + window)
     q, do = (torch.randn((b, sq, h, d), device=cuda, generator=g).to(dtype)
              for _ in range(2))
     k, v = (torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
             for _ in range(2))
-    o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-    return q, k, v, o, do
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                             window=window)
+    return q, k, v, o, lse, do
 
 
 def _k4b_ok(got, want, dtype):
@@ -576,35 +591,54 @@ def _k4b_ok(got, want, dtype):
 
 
 @pytest.mark.parametrize("case", K4B_CASES)
+def test_flash_attention_lse_kernel_vs_plain(cuda, case):
+    """K4's lse (the forward K4b reads) against the plain lse, LSE_ATOL;
+    its output is the same with and without lse."""
+    causal, window = case[6:8]
+    q, k, v, o, lse, _ = _k4b_inputs(case, cuda)
+    _, want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    plain_o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    live = torch.isfinite(want)
+    assert (lse[live] - want[live]).abs().max().item() <= LSE_ATOL
+    assert torch.all(lse[~live] == torch.inf)
+    assert torch.equal(o, plain_o)
+
+
+@pytest.mark.parametrize("case", K4B_CASES)
 def test_flash_attention_bwd_kernel_vs_plain(cuda, case):
     causal, window, dtype = case[6:]
-    q, k, v, o, do = _k4b_inputs(case, cuda)
+    q, k, v, o, lse, do = _k4b_inputs(case, cuda)
     before = fa_ops.bwd_launches
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                     window=window)
+                                     window=window, lse=lse)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
     want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                    window=window)
     assert _k4b_ok(got, want, dtype)
     again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                       window=window)
+                                       window=window, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("fault, tile", [(1, 1), (2, 1), (1, -1)],
-                         ids=["1", "2", "1-last"])
+@pytest.mark.parametrize("fault, tile", [(1, 1), (2, 1), (1, -1), (3, 1)],
+                         ids=["1", "2", "1-last", "3-lse"])
 def test_flash_attention_bwd_planted_faults_fail(cuda, fault, tile):
-    """Key tile 1 or the last key tile dropped from the dK/dV loop, or
-    Delta left out of dS, fails the check above: gemma3-1b's two layer
-    kinds in bfloat16 and the two float32 cases."""
+    """Key tile 1 or the last key tile dropped from the dK/dV loop, Delta
+    left out of dS, or each row's lse read from the next row, fails the
+    check above: gemma3-1b's two layer kinds in bfloat16 and the two
+    float32 cases."""
     for case in (*K4B_CASES[:2], K4B_CASES[3], K4B_CASES[5]):
         causal, window, dtype = case[6:]
-        q, k, v, o, do = _k4b_inputs(case, cuda)
+        q, k, v, o, lse, do = _k4b_inputs(case, cuda)
         before = fa_ops.bwd_launches
         got = fa_ops.flash_attention_bwd_planted(
             q, k, v, o, do, causal=causal, window=window, fault=fault,
-            tile=tile)
+            tile=tile, lse=lse)
         assert fa_ops.bwd_launches == before
         want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window)
@@ -612,9 +646,10 @@ def test_flash_attention_bwd_planted_faults_fail(cuda, fault, tile):
 
 
 def test_flash_attention_autograd_launches_k4_and_k4b(cuda):
-    """Through autograd on the card: one K4 launch forward, one K4b launch
-    backward, gradients equal to the kernel called directly."""
-    q, k, v, _, do = _k4b_inputs(K4B_CASES[2], cuda)
+    """Through autograd on the card: one K4 launch forward (writing lse),
+    one K4b launch backward, gradients equal to the kernel called directly
+    (which, given no lse, has K4 write it first)."""
+    q, k, v, _, _, do = _k4b_inputs(K4B_CASES[2], cuda)
     for t in (q, k, v):
         t.requires_grad_(True)
     before = (fa_ops.launches, fa_ops.bwd_launches)

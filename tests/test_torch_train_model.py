@@ -280,7 +280,8 @@ def test_flash_attention_gradcheck_float64(case):
 
 def test_flash_attention_grad_path_on_cpu_takes_plain_versions():
     """Through ``flash_attention`` with autograd on, the CPU backward is the
-    plain one and no kernel launch is counted."""
+    plain one, fed the lse that the forward saved, and no kernel launch is
+    counted."""
     case = CASES[0]
     _, (q, k, v, do) = _qkvo(case, torch.float32, 3)
     for t in (q, k, v):
@@ -288,7 +289,10 @@ def test_flash_attention_grad_path_on_cpu_takes_plain_versions():
     before = (fa_ops.launches, fa_ops.bwd_launches)
     out = fa_ops.flash_attention(q, k, v, causal=True)
     got = torch.autograd.grad(out, (q, k, v), do)
-    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, do, causal=True)
+    _, lse = fa_ref.flash_attention_ref(q.detach(), k.detach(), v.detach(),
+                                        causal=True, return_lse=True)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, do, causal=True,
+                                          lse=lse)
     for a, w in zip(got, want):
         assert torch.equal(a, w)
     assert (fa_ops.launches, fa_ops.bwd_launches) == before
