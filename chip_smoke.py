@@ -67,6 +67,24 @@ and nothing of the JAX package ``repro``.  Phases:
      agrees with the plain version, and the planted faults fail there
      too.  Prints prefill ms, decode ms/token
      and tokens/s;
+  5e. the moe, ssm and hybrid families at their published widths
+     (qwen2-moe-a2.7b: 24 layers, 60 routed experts padded to 64, top-4,
+     4 shared; recurrentgemma-9b: 12 periods of (rglru, rglru, local)
+     and 2 tail rglru layers, window 2,048, MQA at head_dim 256;
+     mamba2-780m: 48 SSD mixers), weights drawn on the card from seed 0,
+     each freed before the next: batch 4, 32 greedy tokens, a 2,048-token
+     prompt (recurrentgemma-9b's 4,096, so that its window cuts and the
+     local ring wraps), twice.  K4 runs once per attn/local layer of the
+     prefill (24, 12, 0) and never in decode; the tokens lie in the vocab
+     and agree between the runs.  K4 on qwen2-moe's layer 0 (global, D
+     128, H = KV = 16) and recurrentgemma's layer 2 (local, D 256, H 16
+     over KV 1) agrees with its plain version, and the planted faults
+     fail there.  Then each arch in float32 at full width and 2 or 3
+     layers, batch 1, a 64-token prompt and 4 decode steps, on the card
+     and on the CPU from the same weights: the MoE layers must choose the
+     same experts, and the logits agree within FAMILY_LOGIT_ATOL.
+     Prints parameters, bytes, peak device memory, prefill ms, prompt
+     tokens/s and decode ms/token;
   5c. the fabric and MPI path (``repro_torch.net``, ``repro_torch.mpi``)
      with its link and NIC states on the card: a 64 KiB SLMP transfer
      between two nodes at bench_fabric.py's configuration (window 4, loss
@@ -127,8 +145,9 @@ and nothing of the JAX package ``repro``.  Phases:
      global and a local layer against its plain version and SDPA's
      backward, with its bound (10 D operations per live pair over the
      bf16 peak), its TFLOP/s and its kernels one by one under the profiler;
-     K4 on the serving path's layers with and without the lse output; K1,
-     K2 and K4 carry their launches on the training path
+     K4 on the serving path's layers with and without the lse output, and
+     on phase 5e's two layers (``family_shapes``, with their launches);
+     K1, K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
      one ``SpinIngest`` call, one NIC step, one serving prefill, one
@@ -139,7 +158,8 @@ and nothing of the JAX package ``repro``.  Phases:
      with the most device time; for the train step also K4's and K4b's
      device time and share of the busy time, the host's time in CUDA
      runtime calls and in aten operators (self time), and the operators
-     with the most of it.
+     with the most of it.  Last, each of phase 5e's archs drawn again at
+     full width: one prefill and one decode step under the profiler.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -247,6 +267,25 @@ ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 K4B_REL = {"bfloat16": 2e-2, "float32": 1e-5}
 K4B_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 K4B_ROW_FLOOR = {"bfloat16": 0.05, "float32": 1.0}
+# Phase 5e.  The moe, ssm and hybrid families served at their published
+# widths through the same engine as 5b (batch SERVE_BATCH, SERVE_GEN
+# greedy tokens, twice): per arch the prompt length, the layer whose
+# q/k/v K4 is held (and timed, phase 6) on, and the depth of the float32
+# card-against-CPU check.  recurrentgemma-9b's prompt is 4,096 so that
+# its window of 2,048 cuts in the prefill and the local ring wraps.
+FAMILIES = (  # arch, prompt, K4 layer, layers of the float32 check
+    ("qwen2-moe-a2.7b", 2048, 0, 2),
+    ("recurrentgemma-9b", 4096, 2, 3),
+    ("mamba2-780m", 2048, None, 2),
+)
+# The float32 check: batch 1, a 64-token prompt, 4 teacher-forced decode
+# steps, weights drawn on the card and copied to the CPU.  Logits (standard
+# deviation about 1) within FAMILY_LOGIT_ATOL: float32 sums in other
+# orders (cuBLAS against the CPU's GEMMs, K4's float32 kernel against the
+# plain softmax) through 2-3 layers at full width.
+FAMILY_CHECK_PROMPT = 64
+FAMILY_CHECK_STEPS = 4
+FAMILY_LOGIT_ATOL = 1e-3
 
 
 def log(*a):
@@ -1346,6 +1385,223 @@ def phase_serve(dev):
     return captured, errs, launched, (engine, batch)
 
 
+def family_engine(dev, arch, prompt):
+    """The full-width model of ``arch`` with weights drawn on the card from
+    seed 0, its engine and a prompt batch from ``prefill_batch_specs``."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = configs.get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = shapes.prefill_batch_specs(cfg, prompt, SERVE_BATCH,
+                                        rng=np.random.default_rng(0))
+    batch = {"tokens": torch.as_tensor(tokens["tokens"], device=dev)}
+    return model, params, ServeEngine(model, params,
+                                      max_len=prompt + SERVE_GEN + 8), batch
+
+
+def serve_family(dev, arch, prompt, layer):
+    """Phase 5e for one arch at full width: serve twice, with K4 counted per
+    prefill and decode; K4 held on ``layer``'s own q/k/v.  Returns (K4
+    launches, that layer's (q, k, v, kw) or None, K4's max abs error)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as k4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, engine, batch = family_engine(dev, arch, prompt)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_attn = sum(kind in ("attn", "local") for kind in model.kinds)
+    log(f"[5e] {arch} ({cfg.family}): {cfg.n_layers} layers "
+        f"({n_attn} attn/local, kinds {sorted(set(model.kinds))}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters, "
+        f"{n_bytes} B in {cfg.dtype} (float32 leaves kept), drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    call = None if layer is None else \
+        model.kinds[:layer].count("attn") + model.kinds[:layer].count("local")
+    captured, outs, launched = {}, [], 0
+    plain_call = k4.flash_attention
+    for run in range(2):
+        calls = []
+
+        def recording(q, k, v, **kw):       # the layer's own K4 call
+            out = plain_call(q, k, v, **kw)
+            if len(calls) == call:
+                captured["qkv"] = (q, k, v, kw)
+            calls.append(kw)
+            return out
+
+        if run == 1 and layer is not None:
+            k4.flash_attention = recording
+        try:
+            k4.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = engine.prefill(batch)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            n_pre = k4.launches
+            t0 = time.perf_counter()
+            toks, state = engine.generate(state, SERVE_GEN)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+            n_dec = k4.launches - n_pre
+            launched += k4.launches
+        finally:
+            k4.flash_attention = plain_call
+        if (n_pre, n_dec) != (n_attn, 0):
+            raise AssertionError(f"{arch}: K4 ran {n_pre} times in prefill "
+                                 f"and {n_dec} in decode, not {n_attn} and 0")
+        toks = toks.cpu()
+        if toks.shape != (SERVE_BATCH, SERVE_GEN) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab:
+            raise AssertionError(f"{arch}: bad tokens {toks.shape}")
+        steps = SERVE_GEN - 1
+        log(f"[5e] {arch} run {run}: prefill {t_pre * 1e3:.3f} ms "
+            f"({SERVE_BATCH} x {prompt} tokens, "
+            f"{SERVE_BATCH * prompt / t_pre:.0f} prompt tokens/s); decode "
+            f"{t_dec / steps * 1e3:.3f} ms/token over {steps} steps "
+            f"({SERVE_BATCH * steps / t_dec:.1f} tokens/s at batch "
+            f"{SERVE_BATCH}); K4 launches {n_pre} in prefill, {n_dec} in "
+            f"decode (host clock, synchronized); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+        outs.append(toks)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{arch}: two runs gave different tokens")
+    log(f"[5e] {arch} tokens[0][:8] = {outs[0][0, :8].tolist()}; two runs "
+        f"agree")
+    err = None
+    if layer is not None:
+        if [c["window"] for c in calls] != [
+                cfg.window if kind == "local" else 0
+                for kind in model.kinds if kind in ("attn", "local")]:
+            raise AssertionError(f"{arch}: K4 windows do not follow the "
+                                 f"pattern")
+        q, k, v, kw = captured["qkv"]
+        tag = (f"[5e] K4 {arch} layer {layer} ({model.kinds[layer]}), the "
+               f"prompt's q/k/v:")
+        err, _, want = k4_check(tag, q, k, v, **kw)
+        k4_planted_faults(tag, q, k, v, kw["window"], want)
+        del want
+    del model, params, engine, batch, state
+    torch.cuda.empty_cache()
+    return launched, captured.get("qkv"), err
+
+
+def family_card_vs_cpu(dev, arch, n_layers):
+    """Phase 5e's float32 check of ``arch`` at full width and ``n_layers``:
+    the same prefill and teacher-forced decode steps on the card and on
+    the CPU from the same weights (drawn on the card, copied).  MoE layers
+    must choose the same experts, call by call; logits within
+    FAMILY_LOGIT_ATOL.  Raises on any difference."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        1, FAMILY_CHECK_PROMPT + FAMILY_CHECK_STEPS)))
+    runs = {}
+    plain_route = moe.route
+    for where, p in (("card", params), ("cpu", cpu_params)):
+        d = dev if where == "card" else torch.device("cpu")
+        chosen = []
+
+        def recording(*a, **kw):
+            out = plain_route(*a, **kw)
+            chosen.append(out[2].cpu())
+            return out
+
+        moe.route = recording
+        try:
+            with torch.inference_mode():
+                logits, cache = model.prefill(
+                    p, {"tokens": prompt[:, :FAMILY_CHECK_PROMPT].to(d)},
+                    FAMILY_CHECK_PROMPT + FAMILY_CHECK_STEPS)
+                out = [logits.cpu()]
+                for i in range(FAMILY_CHECK_STEPS):
+                    pos = FAMILY_CHECK_PROMPT + i
+                    logits, cache = model.decode_step(
+                        p, prompt[:, pos:pos + 1].to(d), cache, pos)
+                    out.append(logits.cpu())
+        finally:
+            moe.route = plain_route
+        runs[where] = (out, chosen)
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
+    card, cpu = runs["card"][1], runs["cpu"][1]
+    if len(card) != len(cpu):
+        raise AssertionError(f"{arch}: {len(card)} router calls on the "
+                             f"card, {len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if not torch.equal(a, b):
+            step, j = divmod(i, len(moe_layers))
+            raise AssertionError(
+                f"{arch}: layer {moe_layers[j]} chose other experts on the "
+                f"card than on the CPU in "
+                f"{'the prefill' if step == 0 else 'decode step %d' % step}"
+                f" ({int((a != b).sum())} of {a.numel()} choices)")
+    errs = [(x - y).abs().max().item() for x, y in zip(*(
+        runs[w][0] for w in ("card", "cpu")))]
+    log(f"[5e] {arch} float32 at full width, {n_layers} layers, batch 1, "
+        f"{FAMILY_CHECK_PROMPT}-token prompt + {FAMILY_CHECK_STEPS} decode "
+        f"steps, card against CPU: logits max abs err "
+        f"{[f'{e:.3e}' for e in errs]} (limit {FAMILY_LOGIT_ATOL}; logits "
+        f"std {runs['cpu'][0][0].std().item():.3f}); router calls "
+        f"{len(card)}, the same experts in each")
+    if not max(errs) <= FAMILY_LOGIT_ATOL:
+        raise AssertionError(f"{arch}: card against CPU logits {errs}")
+    del params, cpu_params, cache
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def profile_family(dev, arch, prompt):
+    """Phase 7 for one of phase 5e's archs: its full-width model drawn
+    again, one warm prefill and one decode step under the profiler."""
+    import torch
+    model, params, engine, batch = family_engine(dev, arch, prompt)
+    state = engine.prefill(batch)
+    for what, fn in (("prefill", lambda: engine.prefill(batch)),
+                     ("decode step", lambda: engine.step(state))):
+        n_k, busy, wall, names, top = profile_step(fn)
+        log(f"[7] profiled {arch} {what} (batch {SERVE_BATCH}, prompt "
+            f"{prompt}): {n_k} device kernels, device busy {busy:.1f} us "
+            f"of {wall:.1f} us wall (idle share {1 - busy / wall:.3f}, "
+            f"profiler on); commonest {[(n[:60], c) for n, c in names]}; "
+            f"most device time {[(n[:60], round(us, 1)) for n, us in top]}")
+    del model, params, engine, batch, state
+    torch.cuda.empty_cache()
+
+
+def phase_families(dev):
+    """Phase 5e: the moe, ssm and hybrid families.  Returns {arch: K4
+    launches over both runs} and {arch: (layer, q, k, v, kw, K4 error)}
+    for phase 6."""
+    launches, captured = {}, {}
+    for arch, prompt, layer, depth in FAMILIES:
+        n, cap, err = serve_family(dev, arch, prompt, layer)
+        launches[arch] = n
+        if cap is not None:
+            captured[arch] = (layer,) + cap + (err,)
+        family_card_vs_cpu(dev, arch, depth)
+    return launches, captured
+
+
 def k4b_errors(got, want):
     """(max abs error over the largest |value|, row error) of the worst of
     dq, dk, dv, and whether both are within the limits."""
@@ -1835,12 +2091,76 @@ def time_k3(dev, launches, reqs):
     return entry
 
 
+def time_k4(tag, dev, q, k, v, kw, with_lse=False):
+    """K4 on (q, k, v) at ``kw``'s mask: device time, the plain version's
+    and SDPA's (the yardstick) in the same call, and the bound (4 D
+    operations per live (query, key) pair over the bf16 peak, or q, k, v
+    read and the output written over the HBM rate).  With ``with_lse``,
+    K4 with and without the lse output in turns.  Logs and returns the
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    w = kw["window"]
+    i = torch.arange(sq)
+    hi = i.clamp(max=sk - 1)
+    lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
+    pairs = int((hi - lo + 1).clamp(min=0).sum())
+    n_ops = 4 * d * pairs * b * h
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    by = "operations" if n_ops / BF16_OPS_PER_S > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    ms, host = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
+    lse_note, ms_lse = "", None
+    if with_lse:
+        # without lse (the serving path) and with it (training), in turns
+        ms_lse, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
+                                                                **kw))
+        ms2, _ = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
+        ms_lse2, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
+                                                                 **kw))
+        lse_note = (f"; in turns without and with the lse output: "
+                    f"{ms * 1e3:.3f}, {ms_lse * 1e3:.3f}, {ms2 * 1e3:.3f}, "
+                    f"{ms_lse2 * 1e3:.3f} us")
+    plain, _ = time_ms(lambda: k4ref.flash_attention_ref(q, k, v, **kw),
+                       runs=5, per_run=4)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if w:
+        ii = torch.arange(sq, device=dev)[:, None]
+        jj = torch.arange(sk, device=dev)[None, :]
+        sdpa = dict(attn_mask=(jj <= ii) & (jj > ii - w), enable_gqa=True)
+    else:
+        sdpa = dict(is_causal=True, enable_gqa=True)
+    lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, **sdpa))
+    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+               .transpose(1, 2).float() - k4.flash_attention(
+                   q, k, v, **kw).float()).abs().max().item()
+    choice = torch._fused_sdp_choice(
+        qt, kt, vt, sdpa.get("attn_mask"), 0.0,
+        sdpa.get("is_causal", False), enable_gqa=True)
+    log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} window {w}: device "
+        f"{ms * 1e3:.3f} us (issued in {host * 1e3:.2f} us), plain device "
+        f"{plain * 1e3:.3f} us, SDPA ({SDPBackend(choice).name}) "
+        f"{lib * 1e3:.3f} us (differs from K4 by {lib_err:.3e}), bound "
+        f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
+        f"{n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{bound / ms * 100:.1f} % of the bound){lse_note}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, lse_ms=ms_lse)
+
+
 def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
-                  captured_bwd, k4b_err):
+                  captured_bwd, k4b_err, fam_captured):
     """Time the launch floor, K1-K4 and K4b at their paths' shapes.
     Returns the entries of the ``kernels`` line."""
     import numpy as np
     import torch
+    from repro_torch.models.model import build_model
     from repro_torch.core import ddt, matching, packet as pkt
     from repro_torch.kernels.ddt import ops as k2, ref as k2ref
     from repro_torch.kernels.matcher import ops as k1, ref as k1ref
@@ -1987,7 +2307,8 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
 
     # K4 on the prompt's own q/k/v of a global and a local layer of the
     # serving path; SDPA on the same tensors as the yardstick.  The entry's
-    # main numbers are the global layer's; local_* are the local layer's.
+    # main numbers are the global layer's; local_* are the local layer's;
+    # family_shapes holds phase 5e's two shapes.
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
@@ -2000,60 +2321,73 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
         max_abs_err=max(k4_errs.values()))
     for layer in sorted(captured, reverse=True):          # global first
         q, k, v, kw, _ = captured[layer]
-        b, sq, h, d = q.shape
-        sk = k.shape[1]
         w = kw["window"]
-        i = torch.arange(sq)
-        hi = i.clamp(max=sk - 1)
-        lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
-        pairs = int((hi - lo + 1).clamp(min=0).sum())
-        n_ops = 4 * d * pairs * b * h
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        by = "operations" if n_ops / BF16_OPS_PER_S > \
-            nbytes / HBM_BYTES_PER_S else "bytes"
-        # without lse (the serving path) and with it (training), in turns
-        ms, host = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
-        ms_lse, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
-                                                                **kw))
-        ms2, _ = time_ms(lambda: k4.flash_attention(q, k, v, **kw))
-        ms_lse2, _ = time_ms(lambda: k4.flash_attention_with_lse(q, k, v,
-                                                                 **kw))
-        plain, _ = time_ms(lambda: k4ref.flash_attention_ref(q, k, v, **kw),
-                           runs=5, per_run=4)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = time_k4(f"[6] K4 layer {layer} "
+                    f"({'local, window %d' % w if w else 'global'})",
+                    dev, q, k, v, kw, with_lse=True)
         if w:
-            ii = torch.arange(sq, device=dev)[:, None]
-            jj = torch.arange(sk, device=dev)[None, :]
-            mask = (jj <= ii) & (jj > ii - w)
-            sdpa = dict(attn_mask=mask, enable_gqa=True)
+            k4_entry.update(local_ms=t["ms"], local_plain_ms=t["plain_ms"],
+                            local_bound_ms=t["bound_ms"],
+                            local_library_ms=t["library_ms"],
+                            local_lse_ms=t["lse_ms"])
         else:
-            sdpa = dict(is_causal=True, enable_gqa=True)
-        lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **sdpa))
-        lib_err = (F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
-                   .transpose(1, 2).float() - k4.flash_attention(
-                       q, k, v, **kw).float()).abs().max().item()
-        choice = torch._fused_sdp_choice(
-            qt, kt, vt, sdpa.get("attn_mask"), 0.0,
-            sdpa.get("is_causal", False), enable_gqa=True)
-        log(f"[6] K4 layer {layer} ({'local, window %d' % w if w else 'global'})"
-            f" q{tuple(q.shape)} k{tuple(k.shape)}: device {ms * 1e3:.3f} us "
-            f"(issued in {host * 1e3:.2f} us), plain device "
-            f"{plain * 1e3:.3f} us, SDPA ({SDPBackend(choice).name}) "
-            f"{lib * 1e3:.3f} us (differs from K4 by {lib_err:.3e}), bound "
-            f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
-            f"{n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{bound / ms * 100:.1f} % of the bound); in turns without and "
-            f"with the lse output: {ms * 1e3:.3f}, {ms_lse * 1e3:.3f}, "
-            f"{ms2 * 1e3:.3f}, {ms_lse2 * 1e3:.3f} us")
-        if w:
-            k4_entry.update(local_ms=ms, local_plain_ms=plain,
-                            local_bound_ms=bound, local_library_ms=lib,
-                            local_lse_ms=ms_lse)
-        else:
-            k4_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by, library_ms=lib, lse_ms=ms_lse)
+            k4_entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                            library_ms=t["library_ms"], lse_ms=t["lse_ms"])
+    # the two shapes of phase 5e, on their layers' own q/k/v
+    k4_entry["family_shapes"] = []
+    for arch, (layer, q, k, v, kw, err) in fam_captured.items():
+        t = time_k4(f"[6] K4 {arch} layer {layer}", dev, q, k, v, kw)
+        k4_entry["family_shapes"].append(dict(
+            arch=arch, layer=layer, q=list(q.shape), k=list(k.shape),
+            window=kw["window"],
+            launches=launches["families"][arch], max_abs_err=err,
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}))
+    k4_entry["family_launches"] = launches["families"]
+    # Not kernels (plain PyTorch, no TPU kernel behind them): the two
+    # recurrences of phase 5e's prefills at their shapes, candidates for a
+    # later kernel: the rglru scan (B 4, S 4,096, width 4,096, float32; 26
+    # layers a recurrentgemma-9b prefill), and mamba2's SSD (B 4, S 2,048,
+    # 48 heads of 64, state 128, chunk 128; 48 layers a prefill) with its
+    # 16-step chunk loop alone
+    from repro_torch import configs
+    from repro_torch.models import rglru, ssm
+    g = torch.Generator(device=dev).manual_seed(5)
+    rg = configs.get_config("recurrentgemma-9b")
+    a = torch.rand((4, 4096, rg.lru_width), device=dev, generator=g)
+    b = torch.randn((4, 4096, rg.lru_width), device=dev, generator=g)
+    scan_ms, scan_host = time_ms(lambda: rglru.linear_scan(a, b), runs=5,
+                                 per_run=4)
+    n_rg = sum(kind == "rglru" for kind in
+               build_model(rg).kinds)
+    del a, b
+    mb = configs.get_config("mamba2-780m")
+    bb, s, h, p, n = 4, 2048, mb.ssm_heads, mb.ssm_head_dim, mb.ssm_state
+    xh = torch.randn((bb, s, h, p), device=dev, generator=g
+                     ).to(torch.bfloat16)
+    dt = torch.rand((bb, s, h), device=dev, generator=g) * 0.1
+    am = -torch.linspace(1.0, 16.0, h, device=dev)
+    bm, cm = (torch.randn((bb, s, n), device=dev, generator=g)
+              for _ in range(2))
+    ssd_ms, ssd_host = time_ms(lambda: ssm.ssd_chunked(
+        xh, dt, am, bm, cm, mb.ssm_chunk), runs=5, per_run=4)
+    nc = s // mb.ssm_chunk
+    dec = torch.rand((bb, nc, h), device=dev, generator=g)
+    loc = torch.randn((bb, nc, h, n, p), device=dev, generator=g)
+    loop_ms, loop_host = time_ms(lambda: ssm.chunk_states(dec, loc),
+                                 runs=5, per_run=4)
+    log(f"[6] plain PyTorch, not kernels: rglru linear_scan at "
+        f"(4, 4096, {rg.lru_width}) float32: {scan_ms:.3f} ms on the "
+        f"device (issued in {scan_host:.3f} ms) a layer, "
+        f"{scan_ms * n_rg:.3f} ms over the {n_rg} rglru layers of a "
+        f"prefill; mamba2 ssd_chunked at ({bb}, {s}, {h}, {p}), state {n}, "
+        f"chunk {mb.ssm_chunk}: {ssd_ms:.3f} ms (issued in "
+        f"{ssd_host:.3f} ms) a layer, {ssd_ms * mb.n_layers:.3f} ms over "
+        f"{mb.n_layers} layers; its {nc}-step chunk loop alone "
+        f"{loop_ms:.3f} ms (issued in {loop_host:.3f} ms) a layer, "
+        f"{loop_ms * mb.n_layers:.3f} ms a prefill")
+    del xh, dt, bm, cm, dec, loc
     out.append(k4_entry)
 
     # K4b on the training run's own inputs of a global and a local layer,
@@ -2156,6 +2490,7 @@ def main() -> int:
     from repro_torch.kernels.matcher import ops as k1
     from repro_torch import card_line, configs
     from repro_torch.core import matching
+    from repro_torch.models.model import build_model
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions
     card = card_line()
@@ -2189,6 +2524,16 @@ def main() -> int:
     if (launches["checksum"], launches["flash_attention"]) != (
             ck_calls, 2 * n_layers):
         raise AssertionError(f"path launches {launches}")
+    # the moe, ssm and hybrid families, each arch's serving counted on its
+    # own (serve_family zeroes K4's count before each prefill)
+    launches["families"], fam_captured = phase_families(dev)
+    want = {arch: 2 * sum(kind in ("attn", "local") for kind in
+                          build_model(configs.get_config(arch)).kinds)
+            for arch, _, _, _ in FAMILIES}
+    log(f"[5e] path launches: K4 {launches['families']} (= 2 prefills x "
+        f"the attn/local layers, {want})")
+    if launches["families"] != want:
+        raise AssertionError(f"family path launches {launches['families']}")
     # the fabric and MPI path, counted on its own: K1 once per NIC step,
     # and a node steps only on ticks its link delivered frames
     k1.launches = 0
@@ -2207,8 +2552,8 @@ def main() -> int:
     # the training path, counted on its own
     captured_bwd, launches["train"], k4b_err, train_step = phase_train(dev)
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
-                            empty, captured_bwd, k4b_err)
-    del captured_bwd
+                            empty, captured_bwd, k4b_err, fam_captured)
+    del captured_bwd, fam_captured
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the
     # complex stream's first batch, replayed), a prefill and a decode step
@@ -2241,6 +2586,9 @@ def main() -> int:
             f"{[(n[:60], round(us, 1)) for n, us in top]}")
     log(f"[7] the profiled allreduce tick ran "
         f"{sum(n.steps for n in comm.nodes) - steps0} NIC steps")
+    del engine, prompt, state, train_step
+    for arch, prompt_len, _, _ in FAMILIES:
+        profile_family(dev, arch, prompt_len)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Model inputs drawn from a seed; numpy copy of the dense-family part of
-``repro.configs.shapes``.
+"""Model inputs drawn from a seed; numpy copy of the token-model part of
+``repro.configs.shapes`` (the dense, moe, ssm and hybrid families).
 
 The arrays are drawn from the ``np.random.Generator`` in the same order as
 the JAX package draws them (tokens, then targets), so one seed gives both
@@ -22,10 +22,10 @@ def train_batch_specs(cfg: ModelConfig, seq: int, batch: int,
                       rng: Optional[np.random.Generator] = None
                       ) -> Dict[str, np.ndarray]:
     """Inputs for a training step: tokens and targets, (batch, seq) int32."""
-    if cfg.family != "dense":
+    if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"shapes: family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"\"Modules to port\"); only 'dense' is")
+            f"\"Modules to port\"); dense, moe, ssm and hybrid are")
     rng = rng or np.random.default_rng(0)
     tokens = _ints((batch, seq), cfg.vocab, rng)
     targets = _ints((batch, seq), cfg.vocab, rng)

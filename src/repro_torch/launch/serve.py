@@ -5,6 +5,11 @@ PyTorch port of ``repro.launch.serve``.
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+Any arch of the dense, moe, ssm and hybrid families serves
+(``--arch qwen2-moe-a2.7b``, ``mamba2-780m``, ``recurrentgemma-9b``;
+kimi-k2-1t-a32b only at ``--smoke``: its full width does not fit one
+card); whisper-tiny and qwen2-vl-2b raise (not ported yet).
+
 Weights are drawn from ``--seed`` (a ``torch.Generator`` on the device)
 and the prompts from the same seed with numpy, as ``repro.launch.serve``
 draws them.  Prints the prefill time and the decode time per step (host

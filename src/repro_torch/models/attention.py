@@ -1,5 +1,5 @@
-"""GQA attention for the dense serving path; PyTorch port of
-``repro.models.attention``.
+"""GQA attention (the ``attn`` and ``local`` layers of the dense, moe and
+hybrid families); PyTorch port of ``repro.models.attention``.
 
 The full-sequence (prefill) path goes through kernel K4
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), which

@@ -1,12 +1,17 @@
-"""Carry the JAX package's dense-model parameters, optimizer state and
-checkpoints into the port.
+"""Carry the JAX package's model parameters, optimizer state and
+checkpoints into the port (dense, moe, ssm and hybrid families).
 
-The JAX tree holds the layers as ``scan_blocks`` (one entry per position
-in the layer pattern, each stacked over the periods), then ``tail_blocks``
-(the pattern's leftover layers); ``head_blocks`` is empty for the dense
-family.  The port keeps one block per layer in absolute order, so layer
-``period * len(pattern) + pos`` takes slice ``period`` of
-``scan_blocks[pos]`` and the tail layers follow.
+The JAX tree holds the layers as ``head_blocks`` (``cfg.first_k_dense``
+dense layers; empty but for kimi-k2), ``scan_blocks`` (one entry per
+position in the layer pattern, each stacked over the periods, to any
+depth: ``moe/shared/up`` is three levels down), then ``tail_blocks`` (the
+pattern's leftover layers).  The port keeps one block per layer in
+absolute order: the head layers, then layer ``n_head + period *
+len(pattern) + pos`` from slice ``period`` of ``scan_blocks[pos]``, then
+the tail.  Leaves the JAX package holds in float32 whatever
+``cfg.dtype`` is (``moe/router``, ``rglru/{b_r,b_i,lam}``,
+``ssm/{a_log,dt_bias,d_skip}``) stay float32; the rest take
+``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -19,34 +24,50 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.model import Params
 from repro_torch.train import tree as T
 from repro_torch.train.optimizer import OptState
 
 
-def _pdict(tree: Dict[str, Any], dtype, dev) -> nn.ParameterDict:
-    return nn.ParameterDict({k: L.param(_tensor(v, dtype, dev))
-                             for k, v in tree.items()})
+# per block part, the leaves held in float32 at any cfg.dtype
+_FLOAT32 = {"moe": M.FLOAT32, "rglru": R.FLOAT32, "ssm": S.FLOAT32}
+
+
+def _pdict(tree: Dict[str, Any], dtype, dev, f32=frozenset()
+           ) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: _pdict(v, dtype, dev) if isinstance(v, dict) else
+        L.param(_tensor(v, torch.float32 if k in f32 else dtype, dev))
+        for k, v in tree.items()})
 
 
 def _tensor(x, dtype, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(x), device=dev).to(dtype)
 
 
+def _slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Slice ``i`` of every leaf of a nested dict of stacked arrays."""
+    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def port_layout(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX tree's leaves in the port's layout, ``Params.tree()``'s:
     {"embed", "blocks": [one per layer, absolute order], "final_norm"}."""
-    if cfg.family != "dense" or tree.get("head_blocks"):
+    if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
-            "params_from_numpy: only the dense family is ported "
-            "(ROADMAP.md, \"Modules to port\")")
+            f"params_from_numpy: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP.md, \"Modules to port\")")
     period = len(cfg.layer_pattern)
+    n_periods = (cfg.n_layers - cfg.first_k_dense) // period
     scan = tree.get("scan_blocks", [])
-    blocks = []
-    for layer in range(cfg.n_periods * period):
+    blocks = list(tree.get("head_blocks", []))
+    for layer in range(n_periods * period):
         per, pos = divmod(layer, period)
-        blocks.append({k: {kk: vv[per] for kk, vv in v.items()}
-                       for k, v in scan[pos].items()})
+        blocks.append(_slice(scan[pos], per))
     blocks += list(tree.get("tail_blocks", []))
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"params_from_numpy: {len(blocks)} blocks for "
@@ -57,12 +78,14 @@ def port_layout(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device="cuda") -> Params:
-    """``tree``: the JAX parameter tree with numpy float32 leaves.  Returns
-    the port's parameters in ``cfg.dtype`` on ``device``."""
+    """``tree``: the JAX parameter tree with numpy leaves.  Returns the
+    port's parameters on ``device``, in ``cfg.dtype`` but for the leaves
+    the JAX package holds in float32."""
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.dtype)
     t = port_layout(cfg, tree)
-    blocks = [nn.ModuleDict({k: _pdict(v, dt, dev) for k, v in b.items()})
+    blocks = [nn.ModuleDict({k: _pdict(v, dt, dev, _FLOAT32.get(k, ()))
+                             for k, v in b.items()})
               for b in t["blocks"]]
     return Params(_pdict(t["embed"], dt, dev), blocks,
                   _pdict(t["final_norm"], dt, dev))

@@ -33,6 +33,12 @@ def _normal(shape, scale: float, dtype, g: torch.Generator) -> torch.Tensor:
                        generator=g) * scale
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (torch's
+    ``F.softplus`` returns x itself from x > 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
 # ------------------------------------------------------------------- norms
 def rmsnorm_init(d: int, dtype, device) -> nn.ParameterDict:
     return nn.ParameterDict({"scale": param(torch.ones(d, dtype=dtype,

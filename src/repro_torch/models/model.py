@@ -1,10 +1,18 @@
-"""Model assembly for the dense family; PyTorch port of
-``repro.models.model``.
+"""Model assembly for the dense, moe, ssm and hybrid families; PyTorch
+port of ``repro.models.model``.
 
 The JAX package scans one period of the layer pattern over stacked
-parameters; here the layers are an ``nn.ModuleList`` in absolute layer
-order (layer i has kind ``cfg.pattern_layers[i]``), run by a Python loop.
-``convert.params_from_numpy`` maps the JAX tree onto that order.
+parameters, with ``cfg.first_k_dense`` head layers before it (kimi-k2's
+dense first layer) and the pattern's leftover layers after it; here the
+layers are an ``nn.ModuleList`` in absolute layer order (layer i has kind
+``Model.kinds[i]``: the head layers' ``attn``, then the pattern tiled),
+run by a Python loop.  ``convert.params_from_numpy`` maps the JAX tree
+onto that order.
+
+Blocks by family: dense, attention (``attn``/``local``) and an MLP; moe,
+the same with ``models.moe`` in place of the MLP after the head layers;
+ssm, a mamba2 mixer (``models.ssm``) and no FFN; hybrid, ``rglru``
+(``models.rglru``) or ``local`` mixers, each with an MLP.
 
 Entry points:
   init(generator)                          -> params
@@ -14,9 +22,13 @@ Entry points:
   decode_step(params, tokens, cache, pos)  -> (logits, cache)
   init_cache(batch_size, max_len, device)  -> cache
 
-The cache is a list with one ``{"k", "v"}`` dict per layer; ``prefill``
-fills a fresh one and ``decode_step`` updates it in place.  The moe, ssm,
-hybrid, encdec and vlm families are not ported yet (ROADMAP.md, "Modules to
+The cache is a list with one dict per layer: ``{"k", "v"}`` for
+attention, ``{"conv", "h"}`` for rglru and ``{"conv", "ssd"}`` for ssm
+layers; ``prefill`` fills a fresh one and ``decode_step`` updates it in
+place.  MoE layers run at ``cfg.moe_capacity_factor`` in the forward and
+the prefill and at ``n_experts`` (drop-free) in decode; ``aux``, their
+load-balancing loss summed over layers, is added to ``loss_fn``'s loss.
+The encdec and vlm families are not ported yet (ROADMAP.md, "Modules to
 port").
 
 Remat (``cfg.remat``), when autograd records the forward: each block runs
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,51 +55,102 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
 Cache = List[Dict[str, torch.Tensor]]
+ATTENTION = ("attn", "local")
 
 
 # ===================================================================== blocks
-def _block_init(g: torch.Generator, cfg: ModelConfig) -> nn.ModuleDict:
+def _block_init(g: torch.Generator, cfg: ModelConfig, kind: str,
+                moe: bool) -> nn.ModuleDict:
     dt = L.dtype_of(cfg.dtype)
-    return nn.ModuleDict({
-        "norm1": L.rmsnorm_init(cfg.d_model, dt, g.device),
-        "attn": A.attn_init(g, cfg),
-        "norm2": L.rmsnorm_init(cfg.d_model, dt, g.device),
-        "mlp": L.mlp_init(g, cfg, cfg.d_ff),
-    })
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, dt, g.device)}
+    if kind in ATTENTION:
+        p["attn"] = A.attn_init(g, cfg)
+    elif kind == "rglru":
+        p["rglru"] = R.rglru_init(g, cfg)
+    elif kind == "ssm":
+        p["ssm"] = S.ssm_init(g, cfg)
+        return nn.ModuleDict(p)                    # mamba2: mixer only
+    else:
+        raise ValueError(kind)
+    p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, g.device)
+    if moe:
+        p["moe"] = M.moe_init(g, cfg)
+    else:
+        p["mlp"] = L.mlp_init(g, cfg, cfg.d_ff)
+    return nn.ModuleDict(p)
 
 
 def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
-                       cache=None):
-    """One block over the full sequence.  With ``cache`` (prefill) the
-    block's K/V are written into it with decode-compatible addressing."""
+                       cache=None) -> Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]:
+    """One block over the full sequence.  Returns (h, the MoE aux loss or
+    None).  With ``cache`` (prefill) the block's K/V, or its recurrent
+    state, are written into it with decode-compatible addressing."""
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-    if cache is not None:
-        y, (k, v) = A.attend_train(p["attn"], cfg, x, positions, kind=kind,
-                                   return_kv=True)
-        A.fill_kv_cache(cache["k"], cache["v"], k, v, kind, cfg.window)
+    if kind in ATTENTION:
+        if cache is not None:
+            y, (k, v) = A.attend_train(p["attn"], cfg, x, positions,
+                                       kind=kind, return_kv=True)
+            A.fill_kv_cache(cache["k"], cache["v"], k, v, kind, cfg.window)
+        else:
+            y = A.attend_train(p["attn"], cfg, x, positions, kind=kind)
     else:
-        y = A.attend_train(p["attn"], cfg, x, positions, kind=kind)
+        apply = R.rglru_apply_train if kind == "rglru" \
+            else S.ssm_apply_train
+        if cache is not None:
+            y, state = apply(p[kind], cfg, x, return_state=True)
+            for k, v in state.items():
+                cache[k].copy_(v)
+        else:
+            y = apply(p[kind], cfg, x)
     h = h + y
+    if "norm2" not in p:                           # mamba2 blocks: no FFN
+        return h, None
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
-    return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)
+    if "moe" in p:
+        y, aux = M.moe_apply(p["moe"], cfg, x2)
+        return h + y, aux
+    return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind), None
 
 
 def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos):
     """One block, single token; updates ``cache`` in place."""
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-    y, _, _ = A.attend_decode(p["attn"], cfg, x, cache["k"], cache["v"],
-                              pos, kind=kind)
+    if kind in ATTENTION:
+        y, _, _ = A.attend_decode(p["attn"], cfg, x, cache["k"], cache["v"],
+                                  pos, kind=kind)
+    elif kind == "rglru":
+        y, _ = R.rglru_apply_decode(p["rglru"], cfg, x, cache)
+    else:
+        y, _ = S.ssm_apply_decode(p["ssm"], cfg, x, cache)
     h = h + y
+    if "norm2" not in p:
+        return h
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
+    if "moe" in p:
+        # drop-free capacity: a one-token step must keep its experts
+        y, _ = M.moe_apply(p["moe"], cfg, x2,
+                           capacity_factor=float(cfg.n_experts))
+        return h + y
     return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)
 
 
+def _tree(m):
+    """A ParameterDict / ModuleDict as nested dicts of its tensors."""
+    if isinstance(m, (nn.ParameterDict, nn.ModuleDict)):
+        return {k: _tree(v) for k, v in m.items()}
+    return m
+
+
 class Params(nn.Module):
-    """The dense model's parameters: ``embed`` ({"tok", "lm_head"}),
-    ``blocks`` (one ModuleDict per layer, absolute order) and
-    ``final_norm`` ({"scale"})."""
+    """The model's parameters: ``embed`` ({"tok", "lm_head"}), ``blocks``
+    (one ModuleDict per layer, absolute order) and ``final_norm``
+    ({"scale"})."""
 
     def __init__(self, embed: nn.ParameterDict, blocks: List[nn.ModuleDict],
                  final_norm: nn.ParameterDict):
@@ -100,10 +163,9 @@ class Params(nn.Module):
         """The same parameter tensors as a tree of dicts and lists
         (``repro_torch.train.tree``): {"embed", "blocks": [per layer],
         "final_norm"}, the form the optimizer and checkpoints take."""
-        return {"embed": dict(self.embed.items()),
-                "blocks": [{k: dict(v.items()) for k, v in blk.items()}
-                           for blk in self.blocks],
-                "final_norm": dict(self.final_norm.items())}
+        return {"embed": _tree(self.embed),
+                "blocks": [_tree(blk) for blk in self.blocks],
+                "final_norm": _tree(self.final_norm)}
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -120,12 +182,23 @@ def _save_dots(ctx, op, *args, **kwargs):
 class Model:
     cfg: ModelConfig
 
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        """Each layer's kind in absolute order: ``cfg.first_k_dense`` head
+        layers of kind ``attn``, then the layer pattern tiled over the
+        rest (its leftover layers are the JAX package's tail)."""
+        cfg = self.cfg
+        n_head, pat = cfg.first_k_dense, cfg.layer_pattern
+        return ("attn",) * n_head + tuple(
+            pat[i % len(pat)] for i in range(cfg.n_layers - n_head))
+
     def init(self, generator: torch.Generator) -> Params:
         """Random weights drawn from ``generator`` on its device, at the JAX
         package's scales (the numbers differ: another generator)."""
         cfg, g = self.cfg, generator
         embed = L.embed_init(g, cfg)
-        blocks = [_block_init(g, cfg) for _ in range(cfg.n_layers)]
+        blocks = [_block_init(g, cfg, kind, cfg.moe_layer(i))
+                  for i, kind in enumerate(self.kinds)]
         return Params(embed, blocks,
                       L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg.dtype),
                                      g.device))
@@ -145,7 +218,8 @@ class Model:
                            true_vocab=cfg.vocab)
 
     def _block(self, p, kind: str, h, positions):
-        """One block, under ``cfg.remat`` when autograd records."""
+        """One block, under ``cfg.remat`` when autograd records.  Returns
+        (h, aux or None)."""
         remat = self.cfg.remat
         if remat == "none" or not torch.is_grad_enabled():
             return _block_apply_train(p, self.cfg, kind, h, positions)
@@ -164,9 +238,11 @@ class Model:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  Returns (logits (B, S, V), aux loss)."""
         h, positions = self._embed_inputs(params, batch["tokens"])
-        for p, kind in zip(params.blocks, self.cfg.pattern_layers):
-            h = self._block(p, kind, h, positions)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for p, kind in zip(params.blocks, self.kinds):
+            h, a = self._block(p, kind, h, positions)
+            if a is not None:
+                aux = aux + a
         return self._logits(params, h), aux
 
     # ---------------------------------------------------------------- loss
@@ -196,8 +272,9 @@ class Model:
         filled cache); ``decode_step`` continues from position S."""
         h, positions = self._embed_inputs(params, batch["tokens"])
         cache = self.init_cache(h.shape[0], max_len, h.device)
-        for p, c, kind in zip(params.blocks, cache, self.cfg.pattern_layers):
-            h = _block_apply_train(p, self.cfg, kind, h, positions, cache=c)
+        for p, c, kind in zip(params.blocks, cache, self.kinds):
+            h, _ = _block_apply_train(p, self.cfg, kind, h, positions,
+                                      cache=c)
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     # --------------------------------------------------------------- cache
@@ -206,7 +283,13 @@ class Model:
         dev = resolve_device(device)
         dt = L.dtype_of(cfg.dtype)
         cache = []
-        for kind in cfg.pattern_layers:
+        for kind in self.kinds:
+            if kind == "rglru":
+                cache.append(R.rglru_decode_init(cfg, batch, dt, dev))
+                continue
+            if kind == "ssm":
+                cache.append(S.ssm_decode_init(cfg, batch, dt, dev))
+                continue
             c = min(cfg.window, max_len) if (kind == "local" and cfg.window) \
                 else max_len
             shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
@@ -221,15 +304,15 @@ class Model:
         (logits (B, V), cache), the cache updated in place."""
         h = L.embed_tokens(params.embed, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
-        for p, c, kind in zip(params.blocks, cache, self.cfg.pattern_layers):
+        for p, c, kind in zip(params.blocks, cache, self.kinds):
             h = _block_apply_decode(p, self.cfg, kind, h, c, pos)
         return self._logits(params, h)[:, 0], cache
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"build_model: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, \"Modules to port\": moe, ssm, hybrid, encdec "
-            f"and vlm come in later slices); only 'dense' is")
+            f"(ROADMAP.md, \"Modules to port\": encdec and vlm come in a "
+            f"later slice); dense, moe, ssm and hybrid are")
     return Model(cfg)

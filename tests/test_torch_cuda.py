@@ -4,9 +4,12 @@ attention, with the lse it writes for K4b; tolerance at ``LSE_ATOL``) and
 K4b (its backward; tolerances at ``K4B_REL``) against their plain
 versions, a small train step on the card against the CPU,
 ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls on the
-CPU, the serving path's kernel launches, and the fabric and MPI
-layer (threefry draws, a lossy SLMP fabric tick for tick, a rendezvous
-with NIC unpack) on the card against the CPU.  Tolerance: exact (0)
+CPU, the serving path's kernel launches, the moe, ssm and hybrid
+layers (``moe_apply`` routing, drops and outputs, a bfloat16
+``moe_apply`` twice bit for bit, ``ssd_chunked``, the rglru scan) on
+the card against the CPU, and the fabric and MPI layer (threefry
+draws, a lossy SLMP fabric tick for tick, a rendezvous with NIC unpack)
+on the card against the CPU.  Tolerance: exact (0)
 for K1-K3; K2 compares bit patterns.  K4 holds two limits at once: the
 max abs error (bfloat16 0.06, the tolerance the JAX package holds its own
 kernel to; float32 1e-4) and the row error, each row's largest error over
@@ -21,6 +24,8 @@ available.  This file imports nothing of JAX, so it also runs on a machine
 with only PyTorch:  PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -699,6 +704,93 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------- moe, ssm and hybrid layers
+def _moe_params(cfg, dev, seed=0):
+    from repro_torch.models import moe
+    return moe.moe_init(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+@pytest.mark.parametrize("factor", [None, 1.0], ids=["cf8", "cf1"])
+def test_moe_apply_on_the_card_equals_the_cpu(cuda, factor):
+    """qwen2-moe's smoke width in float32: the same experts chosen, the
+    same assignments dropped (capacity factor 1.0), outputs within 1e-5,
+    aux within 1e-6."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    p = _moe_params(cfg, cuda)
+    cp = copy.deepcopy(p).cpu()
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(
+        ).manual_seed(1))
+    got, aux = moe.moe_apply(p, cfg, x.to(cuda), capacity_factor=factor)
+    want, caux = moe.moe_apply(cp, cfg, x, capacity_factor=factor)
+    xt = x.reshape(-1, cfg.d_model)
+    cap = moe.capacity_of(cfg, xt.shape[0], factor or
+                          cfg.moe_capacity_factor)
+    plans = []
+    for params, t in ((p, xt.to(cuda)), (cp, xt)):
+        _, _, top_e = moe.route(params, cfg, t)
+        plans.append((top_e.cpu(),) + tuple(
+            r.cpu() for r in moe.dispatch(top_e, params["up"].shape[0],
+                                          cap)))
+    for a, b in zip(*plans):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), caux, atol=1e-6, rtol=1e-6)
+
+
+def test_moe_apply_bf16_on_the_card_is_deterministic(cuda):
+    """Two bfloat16 runs at a full-width token count (qwen2-moe's smoke
+    experts, 8,192 tokens) give the same bits: the combine adds in a fixed
+    order, with no atomics."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-moe-a2.7b"),
+                              moe_capacity_factor=1.25)
+    p = _moe_params(cfg, cuda)
+    x = torch.randn((4, 2048, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2)
+                    ).to(torch.bfloat16)
+    a = moe.moe_apply(p, cfg, x)
+    b = moe.moe_apply(p, cfg, x)
+    assert a[0].dtype == torch.bfloat16
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("s", [256, 200])
+def test_ssd_chunked_on_the_card_equals_the_cpu(cuda, s):
+    """mamba2's chunk 128 over one and a half and two chunks, float32:
+    1e-5 relative to the largest |value| (sums in other orders)."""
+    from repro_torch.models import ssm
+    g = torch.Generator().manual_seed(s)
+    xh = torch.randn((2, s, 4, 16), generator=g)
+    dt = torch.rand((2, s, 4), generator=g) * 0.1
+    a = -torch.linspace(0.5, 2.0, 4)
+    bm, cm = (torch.randn((2, s, 32), generator=g) for _ in range(2))
+    want = ssm.ssd_chunked(xh, dt, a, bm, cm, chunk=128)
+    got = ssm.ssd_chunked(*(t.to(cuda) for t in (xh, dt, a, bm, cm)),
+                          chunk=128)
+    for x, w in zip(got, want):
+        scale = w.abs().max().item()
+        torch.testing.assert_close(x.cpu(), w, atol=1e-5 * scale, rtol=0)
+
+
+def test_rglru_scan_on_the_card_equals_the_cpu(cuda):
+    """The log-depth scan at recurrentgemma's width over 4,096 steps,
+    float32: 1e-5 relative to the largest |value|."""
+    from repro_torch.models import rglru
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand((1, 4096, 4096), generator=g) * 0.5 + 0.5
+    b = torch.randn((1, 4096, 4096), generator=g)
+    want = rglru.linear_scan(a, b)
+    got = rglru.linear_scan(a.to(cuda), b.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                               rtol=0)
 
 
 # ------------------------------------------------------- fabric and MPI

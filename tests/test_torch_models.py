@@ -157,7 +157,14 @@ def test_params_from_numpy_layer_order():
 @pytest.mark.parametrize("arch,prompt", [("gemma3-1b", 40),
                                          ("qwen3-1.7b", 24)])
 def test_prefill_decode_generate_vs_jax(arch, prompt):
-    jc, tc, jm, tm, jp, _, tp = _model_pair(arch, "float32", seed=1)
+    serve_vs_jax(arch, prompt)
+
+
+def serve_vs_jax(arch, prompt, seed=1):
+    """Float32 ``prefill``, six teacher-forced ``decode_step``s and
+    ``ServeEngine.generate`` of the smoke config of ``arch`` against the
+    JAX package's (logits within LOGIT_TOL, tokens equal)."""
+    jc, tc, jm, tm, jp, _, tp = _model_pair(arch, "float32", seed=seed)
     batch, gen = 2, 6
     max_len = prompt + gen + 8
     jb, tb = _prompt(jc, tc, prompt, batch)
