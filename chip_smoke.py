@@ -85,6 +85,23 @@ and nothing of the JAX package ``repro``.  Phases:
      same experts, and the logits agree within FAMILY_LOGIT_ATOL.
      Prints parameters, bytes, peak device memory, prefill ms, prompt
      tokens/s and decode ms/token;
+  5f. the encdec and vlm families the same way (whisper-tiny: 4 encoder
+     layers over 1,500 stubbed frames and 4 decoder layers with
+     cross-attention, d_model 384, a 224-token decoder prompt; qwen2-vl-2b:
+     28 layers, d_model 1,536, 1,024 stubbed image embeddings and 1,024
+     text tokens, M-RoPE), every input of ``prefill_batch_specs`` passed to
+     the engine.  K4 runs 12 times a whisper prefill (4 encoder layers,
+     non-causal over 1,536 keys after the reference's zero pad; 4 causal
+     self-attentions; 4 cross-attentions with kv_len) and 28 a qwen2-vl
+     prefill, never in decode, in the order ``k4_calls`` gives.  K4 on
+     whisper's encoder layer 0, its cross layer 0 (also with the ragged
+     encoder lengths RAGGED_ENC_LEN, where the planted faults "kv_len
+     ignored" and "kv_len + 64" must fail) and qwen2-vl's layer 0 (with
+     the causal planted fault) agrees with its plain version.  Then each in
+     float32 at 2 layers (whisper: 2 encoder + 2 decoder at enc_seq 1,500
+     with RAGGED_ENC_LEN; qwen2-vl with M-RoPE components that differ),
+     batch 4, on the card and on the CPU: logits within FAMILY_LOGIT_ATOL,
+     greedy tokens equal;
   5c. the fabric and MPI path (``repro_torch.net``, ``repro_torch.mpi``)
      with its link and NIC states on the card: a 64 KiB SLMP transfer
      between two nodes at bench_fabric.py's configuration (window 4, loss
@@ -145,8 +162,11 @@ and nothing of the JAX package ``repro``.  Phases:
      global and a local layer against its plain version and SDPA's
      backward, with its bound (10 D operations per live pair over the
      bf16 peak), its TFLOP/s and its kernels one by one under the profiler;
-     K4 on the serving path's layers with and without the lse output, and
-     on phase 5e's two layers (``family_shapes``, with their launches);
+     K4 on the serving path's layers with and without the lse output, on
+     phase 5e's two layers (``family_shapes``, with their launches) and on
+     phase 5f's calls (``modal_shapes``: whisper's encoder, its cross
+     layer at the path's and the ragged enc_len, SDPA with a boolean mask
+     there, and qwen2-vl's layer 0);
      K1, K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
@@ -158,8 +178,9 @@ and nothing of the JAX package ``repro``.  Phases:
      with the most device time; for the train step also K4's and K4b's
      device time and share of the busy time, the host's time in CUDA
      runtime calls and in aten operators (self time), and the operators
-     with the most of it.  Last, each of phase 5e's archs drawn again at
-     full width: one prefill and one decode step under the profiler.
+     with the most of it.  Last, each of phase 5e's and 5f's archs drawn
+     again at full width: one prefill and one decode step under the
+     profiler.
 
 Any failed check raises, so the script exits nonzero; it also exits
 nonzero, printing no result, when CUDA is unavailable.  The last two lines
@@ -286,6 +307,24 @@ FAMILIES = (  # arch, prompt, K4 layer, layers of the float32 check
 FAMILY_CHECK_PROMPT = 64
 FAMILY_CHECK_STEPS = 4
 FAMILY_LOGIT_ATOL = 1e-3
+# Phase 5f.  The encdec and vlm families served at their published widths
+# through the same engine (batch SERVE_BATCH, SERVE_GEN greedy tokens,
+# twice): per arch the whole prompt and the K4 calls of a prefill whose
+# q/k/v are held (and timed, phase 6), by their index in the prefill's
+# calls.  whisper-tiny's prompt is 224 decoder tokens (its decoder context
+# is 448; openai/whisper conditions on at most n_text_ctx // 2 - 1 previous
+# tokens) beside 1,500 encoder frames; qwen2-vl-2b's 1,024 image and 1,024
+# text tokens.  whisper's prefill calls K4 12 times: its 4 encoder layers
+# (non-causal, 1,536 keys after the zero pad), then per decoder layer the
+# causal self-attention and the cross-attention (kv_len).
+MODAL_FAMILIES = (  # arch, prompt, {held call: its index in the prefill}
+    ("whisper-tiny", 224, {"encoder layer 0": 0, "cross layer 0": 5}),
+    ("qwen2-vl-2b", 2048, {"layer 0": 0}),
+)
+# whisper's cross layer is also held with ragged encoder lengths, and the
+# float32 check runs with them: every key live, some keys cut in and past a
+# 64-key tile, one key
+RAGGED_ENC_LEN = (1500, 1200, 700, 1)
 
 
 def log(*a):
@@ -756,7 +795,7 @@ def k4_errors(got, want):
     return err, row, err <= K4_ATOL[dt] and row <= K4_ROW_TOL[dt]
 
 
-def k4_check(tag, q, k, v, causal, window):
+def k4_check(tag, q, k, v, causal, window, kv_len=None):
     """K4 against its plain version on the same card tensors, and the lse
     it writes when asked (the training path's forward) against the plain
     lse.  Returns (max abs error, row error, the plain output); raises
@@ -764,19 +803,20 @@ def k4_check(tag, q, k, v, causal, window):
     the output."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    got2, lse = ops.flash_attention_with_lse(q, k, v, causal=causal,
-                                             window=window)
-    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
-                                             window=window, return_lse=True)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = ops.flash_attention(q, k, v, **kw)
+    got2, lse = ops.flash_attention_with_lse(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(q, k, v, **kw,
+                                             return_lse=True)
     torch.cuda.synchronize()
     err, row, ok = k4_errors(got, want)
     live = torch.isfinite(want_lse)
     lse_err = ((lse[live] - want_lse[live]).abs().max().item()
                if live.any() else 0.0)
     dt = str(q.dtype).split(".")[-1]
+    lens = "" if kv_len is None else f" kv_len={kv_len.tolist()}"
     log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal="
-        f"{causal} window={window}: max abs err {err:.3e} (limit "
+        f"{causal} window={window}{lens}: max abs err {err:.3e} (limit "
         f"{K4_ATOL[dt]}), row error {row:.3e} (limit {K4_ROW_TOL[dt]}); "
         f"lse max abs err {lse_err:.3e} (limit {LSE_ATOL}), "
         f"{int((~live).sum())} rows with no live key")
@@ -811,6 +851,23 @@ def k4_planted_faults(tag, q, k, v, window, want):
                    want[:, half:])]
     for name, got, ref_out in faults:
         err, row, ok = k4_errors(got, ref_out)
+        log(f"{tag} planted fault ({name}): max abs err {err:.3e}, row "
+            f"error {row:.3e}: {'PASSES' if ok else 'fails'} the check")
+        if ok:
+            raise AssertionError(f"K4 check passes a planted fault: {name}")
+
+
+def k4_kv_len_faults(tag, q, k, v, kv_len, want):
+    """K4 with its key length planted wrong, held to the plain version's
+    ``want`` (non-causal, ``kv_len``) with the check of ``k4_check``:
+    ``kv_len`` ignored, and ``kv_len`` + 64 (at most Sk) must both fail."""
+    from repro_torch.kernels.flash_attention import ops
+    faults = [("kv_len ignored", ops.flash_attention(q, k, v, causal=False)),
+              ("kv_len + 64", ops.flash_attention(
+                  q, k, v, causal=False,
+                  kv_len=(kv_len + 64).clamp(max=k.shape[1])))]
+    for name, got in faults:
+        err, row, ok = k4_errors(got, want)
         log(f"{tag} planted fault ({name}): max abs err {err:.3e}, row "
             f"error {row:.3e}: {'PASSES' if ok else 'fails'} the check")
         if ok:
@@ -1387,7 +1444,9 @@ def phase_serve(dev):
 
 def family_engine(dev, arch, prompt):
     """The full-width model of ``arch`` with weights drawn on the card from
-    seed 0, its engine and a prompt batch from ``prefill_batch_specs``."""
+    seed 0, its engine and a prompt batch: every input that
+    ``prefill_batch_specs`` draws (tokens, and encdec's ``enc_frames`` and
+    ``enc_len`` or vlm's ``img_embeds`` and ``positions``)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -1397,20 +1456,41 @@ def family_engine(dev, arch, prompt):
     cfg = configs.get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    tokens = shapes.prefill_batch_specs(cfg, prompt, SERVE_BATCH,
-                                        rng=np.random.default_rng(0))
-    batch = {"tokens": torch.as_tensor(tokens["tokens"], device=dev)}
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             shapes.prefill_batch_specs(cfg, prompt, SERVE_BATCH,
+                                        rng=np.random.default_rng(0)
+                                        ).items()}
     return model, params, ServeEngine(model, params,
                                       max_len=prompt + SERVE_GEN + 8), batch
 
 
-def serve_family(dev, arch, prompt, layer):
-    """Phase 5e for one arch at full width: serve twice, with K4 counted per
-    prefill and decode; K4 held on ``layer``'s own q/k/v.  Returns (K4
-    launches, that layer's (q, k, v, kw) or None, K4's max abs error)."""
+def k4_calls(model):
+    """The K4 calls of one prefill of ``model``, in order, as (causal,
+    window, with kv_len): the encoder's layers (encdec: non-causal), then
+    per attn/local layer its self-attention and, for encdec, its
+    cross-attention (non-causal, with kv_len)."""
+    cfg = model.cfg
+    encdec = cfg.family == "encdec"
+    calls = [(False, 0, False)] * (cfg.enc_layers if encdec else 0)
+    for kind in model.kinds:
+        if kind in ("attn", "local"):
+            calls.append((True, cfg.window if kind == "local" else 0, False))
+            if encdec:
+                calls.append((False, 0, True))
+    return calls
+
+
+def serve_family(dev, arch, prompt, capture, phase="5e"):
+    """Phase 5e or 5f for one arch at full width: serve twice, with K4
+    counted per prefill and decode and its calls checked against
+    ``k4_calls``; the K4 calls named in ``capture`` ({name: index in the
+    prefill's calls}) held to the plain version on their own q/k/v.
+    Returns (K4 launches, {name: (q, k, v, kw)}, {name: K4's max abs
+    error})."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k4
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # what earlier phases hold
     t0 = time.perf_counter()
     model, params, engine, batch = family_engine(dev, arch, prompt)
     torch.cuda.synchronize()
@@ -1418,33 +1498,37 @@ def serve_family(dev, arch, prompt, layer):
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     n_attn = sum(kind in ("attn", "local") for kind in model.kinds)
-    log(f"[5e] {arch} ({cfg.family}): {cfg.n_layers} layers "
-        f"({n_attn} attn/local, kinds {sorted(set(model.kinds))}), d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters, "
+    want_calls = k4_calls(model)
+    log(f"[{phase}] {arch} ({cfg.family}): {cfg.n_layers} layers "
+        f"({n_attn} attn/local, kinds {sorted(set(model.kinds))}; encoder "
+        f"layers {cfg.enc_layers if cfg.family == 'encdec' else 0}), "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters, "
         f"{n_bytes} B in {cfg.dtype} (float32 leaves kept), drawn on the "
-        f"card in {time.perf_counter() - t0:.2f} s; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-    call = None if layer is None else \
-        model.kinds[:layer].count("attn") + model.kinds[:layer].count("local")
+        f"card in {time.perf_counter() - t0:.2f} s; prompt batch "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} }; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, of "
+        f"which earlier phases hold {held} B")
     captured, outs, launched = {}, [], 0
     plain_call = k4.flash_attention
     for run in range(2):
         calls = []
 
-        def recording(q, k, v, **kw):       # the layer's own K4 call
+        def recording(q, k, v, **kw):       # the layers' own K4 calls
             out = plain_call(q, k, v, **kw)
-            if len(calls) == call:
-                captured["qkv"] = (q, k, v, kw)
+            for name, index in capture.items():
+                if len(calls) == index:
+                    captured[name] = (q, k, v, kw)
             calls.append(kw)
             return out
 
-        if run == 1 and layer is not None:
+        if run == 1:
             k4.flash_attention = recording
         try:
             k4.launches = 0
+            request = {k: t.clone() for k, t in batch.items()}  # as new
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state = engine.prefill(batch)
+            state = engine.prefill(request)
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t0
             n_pre = k4.launches
@@ -1456,43 +1540,52 @@ def serve_family(dev, arch, prompt, layer):
             launched += k4.launches
         finally:
             k4.flash_attention = plain_call
-        if (n_pre, n_dec) != (n_attn, 0):
+        if (n_pre, n_dec) != (len(want_calls), 0):
             raise AssertionError(f"{arch}: K4 ran {n_pre} times in prefill "
-                                 f"and {n_dec} in decode, not {n_attn} and 0")
+                                 f"and {n_dec} in decode, not "
+                                 f"{len(want_calls)} and 0")
         toks = toks.cpu()
         if toks.shape != (SERVE_BATCH, SERVE_GEN) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab:
             raise AssertionError(f"{arch}: bad tokens {toks.shape}")
         steps = SERVE_GEN - 1
-        log(f"[5e] {arch} run {run}: prefill {t_pre * 1e3:.3f} ms "
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{phase}] {arch} run {run}: prefill {t_pre * 1e3:.3f} ms "
             f"({SERVE_BATCH} x {prompt} tokens, "
             f"{SERVE_BATCH * prompt / t_pre:.0f} prompt tokens/s); decode "
             f"{t_dec / steps * 1e3:.3f} ms/token over {steps} steps "
             f"({SERVE_BATCH * steps / t_dec:.1f} tokens/s at batch "
             f"{SERVE_BATCH}); K4 launches {n_pre} in prefill, {n_dec} in "
             f"decode (host clock, synchronized); max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated()} B")
+            f"{peak} B, {(peak - held) / 1e9:.2f} GB above what earlier "
+            f"phases hold")
         outs.append(toks)
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError(f"{arch}: two runs gave different tokens")
-    log(f"[5e] {arch} tokens[0][:8] = {outs[0][0, :8].tolist()}; two runs "
-        f"agree")
-    err = None
-    if layer is not None:
-        if [c["window"] for c in calls] != [
-                cfg.window if kind == "local" else 0
-                for kind in model.kinds if kind in ("attn", "local")]:
-            raise AssertionError(f"{arch}: K4 windows do not follow the "
-                                 f"pattern")
-        q, k, v, kw = captured["qkv"]
-        tag = (f"[5e] K4 {arch} layer {layer} ({model.kinds[layer]}), the "
-               f"prompt's q/k/v:")
-        err, _, want = k4_check(tag, q, k, v, **kw)
-        k4_planted_faults(tag, q, k, v, kw["window"], want)
+    log(f"[{phase}] {arch} tokens[0][:8] = {outs[0][0, :8].tolist()}; two "
+        f"runs agree")
+    got_calls = [(kw["causal"], kw["window"], kw.get("kv_len") is not None)
+                 for kw in calls]
+    if got_calls != want_calls:
+        raise AssertionError(f"{arch}: K4 calls {got_calls} do not follow "
+                             f"the layers {want_calls}")
+    errs = {}
+    for name, (q, k, v, kw) in captured.items():
+        tag = f"[{phase}] K4 {arch} {name}, the prompt's q/k/v:"
+        errs[name], _, want = k4_check(tag, q, k, v, **kw)
+        if kw["causal"]:
+            k4_planted_faults(tag, q, k, v, kw["window"], want)
+        if kw.get("kv_len") is not None:
+            # the same layer with ragged encoder lengths, and its faults
+            kv_len = torch.tensor(RAGGED_ENC_LEN, device=dev)
+            tag = f"[{phase}] K4 {arch} {name}, ragged kv_len:"
+            err, _, want = k4_check(tag, q, k, v, **dict(kw, kv_len=kv_len))
+            k4_kv_len_faults(tag, q, k, v, kv_len, want)
+            errs[name] = max(errs[name], err)
         del want
     del model, params, engine, batch, state
     torch.cuda.empty_cache()
-    return launched, captured.get("qkv"), err
+    return launched, captured, errs
 
 
 def family_card_vs_cpu(dev, arch, n_layers):
@@ -1570,8 +1663,76 @@ def family_card_vs_cpu(dev, arch, n_layers):
     return max(errs)
 
 
+def modal_card_vs_cpu(dev, arch):
+    """Phase 5f's float32 check of ``arch`` at full width and 2 layers
+    (whisper: 2 encoder and 2 decoder layers, ``enc_seq`` left at 1,500 so
+    that the encoder's zero pad is live, with RAGGED_ENC_LEN; qwen2-vl:
+    M-RoPE components that differ, 32 image and 32 text tokens): the same
+    prefill and teacher-forced decode steps on the card and on the CPU
+    from the same weights (drawn on the card, copied), batch 4.  Logits
+    within FAMILY_LOGIT_ATOL and their greedy tokens equal; raises on any
+    difference."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    over = dict(n_layers=2, dtype="float32")
+    if configs.get_config(arch).family == "encdec":
+        over["enc_layers"] = 2
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(2)
+    nb = shapes.prefill_batch_specs(cfg, FAMILY_CHECK_PROMPT, SERVE_BATCH,
+                                    rng=rng)
+    if cfg.family == "encdec":
+        nb["enc_len"] = np.array(RAGGED_ENC_LEN, np.int32)
+    else:
+        i = np.arange(FAMILY_CHECK_PROMPT)
+        nb["positions"] = np.stack([
+            np.broadcast_to(c, (SERVE_BATCH, FAMILY_CHECK_PROMPT))
+            for c in (i, i // 8, i % 8)]).astype(np.int32)
+    s = FAMILY_CHECK_PROMPT
+    forced = rng.integers(0, cfg.vocab, (SERVE_BATCH, FAMILY_CHECK_STEPS))
+    runs = {}
+    for where, p in (("card", params), ("cpu", cpu_params)):
+        d = dev if where == "card" else torch.device("cpu")
+        batch = {k: torch.as_tensor(v, device=d) for k, v in nb.items()}
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, batch, s + FAMILY_CHECK_STEPS)
+            out = [logits.cpu()]
+            for i in range(FAMILY_CHECK_STEPS):
+                logits, cache = model.decode_step(
+                    p, torch.as_tensor(forced[:, i:i + 1], device=d), cache,
+                    s + i)
+                out.append(logits.cpu())
+        runs[where] = out
+    errs = [(x - y).abs().max().item() for x, y in zip(runs["card"],
+                                                       runs["cpu"])]
+    same = all(torch.equal(x.argmax(-1), y.argmax(-1))
+               for x, y in zip(runs["card"], runs["cpu"]))
+    what = (f"+2 encoder layers, enc_len {RAGGED_ENC_LEN}"
+            if cfg.family == "encdec" else "M-RoPE components apart")
+    log(f"[5f] {arch} float32 at full width, 2 layers ({what})"
+        f", batch {SERVE_BATCH}, {s}-token prompt + {FAMILY_CHECK_STEPS} "
+        f"decode steps, card against CPU: logits max abs err "
+        f"{[f'{e:.3e}' for e in errs]} (limit {FAMILY_LOGIT_ATOL}; logits "
+        f"std {runs['cpu'][0].std().item():.3f}); greedy tokens "
+        f"{'equal' if same else 'DIFFER'}")
+    if not (max(errs) <= FAMILY_LOGIT_ATOL and same):
+        raise AssertionError(f"{arch}: card against CPU logits {errs}, "
+                             f"tokens equal {same}")
+    del params, cpu_params, cache
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def profile_family(dev, arch, prompt):
-    """Phase 7 for one of phase 5e's archs: its full-width model drawn
+    """Phase 7 for one of phase 5e's or 5f's archs: its full-width model drawn
     again, one warm prefill and one decode step under the profiler."""
     import torch
     model, params, engine, batch = family_engine(dev, arch, prompt)
@@ -1592,13 +1753,34 @@ def phase_families(dev):
     """Phase 5e: the moe, ssm and hybrid families.  Returns {arch: K4
     launches over both runs} and {arch: (layer, q, k, v, kw, K4 error)}
     for phase 6."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
     launches, captured = {}, {}
     for arch, prompt, layer, depth in FAMILIES:
-        n, cap, err = serve_family(dev, arch, prompt, layer)
+        if layer is None:
+            n, _, _ = serve_family(dev, arch, prompt, {})
+        else:
+            kinds = build_model(configs.get_config(arch)).kinds[:layer]
+            name = f"layer {layer}"
+            n, cap, err = serve_family(dev, arch, prompt, {
+                name: kinds.count("attn") + kinds.count("local")})
+            captured[arch] = (layer,) + cap[name] + (err[name],)
         launches[arch] = n
-        if cap is not None:
-            captured[arch] = (layer,) + cap + (err,)
         family_card_vs_cpu(dev, arch, depth)
+    return launches, captured
+
+
+def phase_modal(dev):
+    """Phase 5f: the encdec and vlm families.  Returns {arch: K4 launches
+    over both runs} and [(arch, call name, q, k, v, kw, K4 error)] for
+    phase 6."""
+    launches, captured = {}, []
+    for arch, prompt, capture in MODAL_FAMILIES:
+        n, cap, errs = serve_family(dev, arch, prompt, capture, phase="5f")
+        launches[arch] = n
+        captured += [(arch, name) + cap[name] + (errs[name],)
+                     for name in capture]
+        modal_card_vs_cpu(dev, arch)
     return launches, captured
 
 
@@ -1682,8 +1864,10 @@ def phase_train(dev):
     plain_ingest = train.datalib.SpinIngest
     gc_clock = [0.0, 0.0, 0]     # start of a collection, ms in all, gen 2
 
-    def recording(q, k, v, o, do, **kw):     # the layers' own K4b calls,
-        kind = "local" if kw["window"] else "global"   # with their lse
+    def recording(q, k, v, o, do, kv_len=None, **kw):  # the layers' own
+        if kv_len is not None:                  # K4b calls, with their lse
+            raise AssertionError("train: gemma3-1b's K4b got a kv_len")
+        kind = "local" if kw["window"] else "global"
         if kind not in captured:
             captured[kind] = (q, k, v, o, do, kw)
         return plain_bwd(q, k, v, o, do, **kw)
@@ -2092,25 +2276,28 @@ def time_k3(dev, launches, reqs):
 
 
 def time_k4(tag, dev, q, k, v, kw, with_lse=False):
-    """K4 on (q, k, v) at ``kw``'s mask: device time, the plain version's
-    and SDPA's (the yardstick) in the same call, and the bound (4 D
-    operations per live (query, key) pair over the bf16 peak, or q, k, v
-    read and the output written over the HBM rate).  With ``with_lse``,
-    K4 with and without the lse output in turns.  Logs and returns the
-    numbers."""
+    """K4 on (q, k, v) at ``kw``'s mask (causal, window, kv_len): device
+    time, the plain version's and SDPA's (the yardstick) in the same call,
+    and the bound (4 D operations per live (query, key) pair over the bf16
+    peak, or q read, the live rows of k and v read and the output written
+    over the HBM rate).  With ``with_lse``, K4 with and without the lse
+    output in turns.  Logs and returns the numbers."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    w = kw["window"]
+    w, causal, kv_len = kw["window"], kw["causal"], kw.get("kv_len")
+    lens = [sk] * b if kv_len is None else kv_len.tolist()
     i = torch.arange(sq)
-    hi = i.clamp(max=sk - 1)
     lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
-    pairs = int((hi - lo + 1).clamp(min=0).sum())
-    n_ops = 4 * d * pairs * b * h
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = sum(int(((i.clamp(max=n - 1) if causal else
+                      torch.full_like(i, n - 1)) - lo + 1).clamp(min=0).sum())
+                for n in lens)
+    n_ops = 4 * d * pairs * h
+    nbytes = (2 * q.numel() + 2 * sum(lens) * k.shape[2] * d) \
+        * q.element_size()
     bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
     by = "operations" if n_ops / BF16_OPS_PER_S > \
         nbytes / HBM_BYTES_PER_S else "bytes"
@@ -2129,12 +2316,15 @@ def time_k4(tag, dev, q, k, v, kw, with_lse=False):
     plain, _ = time_ms(lambda: k4ref.flash_attention_ref(q, k, v, **kw),
                        runs=5, per_run=4)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    jj = torch.arange(sk, device=dev)[None, :]
     if w:
         ii = torch.arange(sq, device=dev)[:, None]
-        jj = torch.arange(sk, device=dev)[None, :]
         sdpa = dict(attn_mask=(jj <= ii) & (jj > ii - w), enable_gqa=True)
+    elif kv_len is not None:                   # (B, 1, 1, Sk), not causal
+        sdpa = dict(attn_mask=(jj < kv_len[:, None])[:, None, None],
+                    enable_gqa=True)
     else:
-        sdpa = dict(is_causal=True, enable_gqa=True)
+        sdpa = dict(is_causal=causal, enable_gqa=True)
     lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **sdpa))
     lib_err = (F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
@@ -2143,7 +2333,9 @@ def time_k4(tag, dev, q, k, v, kw, with_lse=False):
     choice = torch._fused_sdp_choice(
         qt, kt, vt, sdpa.get("attn_mask"), 0.0,
         sdpa.get("is_causal", False), enable_gqa=True)
-    log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} window {w}: device "
+    mask = f"window {w}" if causal else (
+        "not causal" + ("" if kv_len is None else f", kv_len {lens}"))
+    log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {mask}: device "
         f"{ms * 1e3:.3f} us (issued in {host * 1e3:.2f} us), plain device "
         f"{plain * 1e3:.3f} us, SDPA ({SDPBackend(choice).name}) "
         f"{lib * 1e3:.3f} us (differs from K4 by {lib_err:.3e}), bound "
@@ -2155,7 +2347,7 @@ def time_k4(tag, dev, q, k, v, kw, with_lse=False):
 
 
 def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
-                  captured_bwd, k4b_err, fam_captured):
+                  captured_bwd, k4b_err, fam_captured, modal_captured):
     """Time the launch floor, K1-K4 and K4b at their paths' shapes.
     Returns the entries of the ``kernels`` line."""
     import numpy as np
@@ -2345,6 +2537,27 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}))
     k4_entry["family_launches"] = launches["families"]
+    # phase 5f's calls on their own q/k/v: whisper's encoder layer 0 (1,536
+    # keys after the zero pad), its cross layer 0 at the path's enc_len and
+    # at RAGGED_ENC_LEN (SDPA with a boolean mask), qwen2-vl's layer 0
+    k4_entry["modal_shapes"] = []
+    for arch, name, q, k, v, kw, err in modal_captured:
+        variants = [(name, kw)]
+        if kw.get("kv_len") is not None:
+            variants.append((f"{name}, ragged kv_len", dict(
+                kw, kv_len=torch.tensor(RAGGED_ENC_LEN, dtype=torch.int32,
+                                        device=dev))))
+        for call, kwv in variants:
+            t = time_k4(f"[6] K4 {arch} {call}", dev, q, k, v, kwv)
+            kv_len = kwv.get("kv_len")
+            k4_entry["modal_shapes"].append(dict(
+                arch=arch, call=call, q=list(q.shape), k=list(k.shape),
+                causal=kwv["causal"],
+                kv_len=None if kv_len is None else kv_len.tolist(),
+                launches=launches["modal"][arch], max_abs_err=err,
+                **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}))
+    k4_entry["modal_launches"] = launches["modal"]
     # Not kernels (plain PyTorch, no TPU kernel behind them): the two
     # recurrences of phase 5e's prefills at their shapes, candidates for a
     # later kernel: the rglru scan (B 4, S 4,096, width 4,096, float32; 26
@@ -2527,13 +2740,20 @@ def main() -> int:
     # the moe, ssm and hybrid families, each arch's serving counted on its
     # own (serve_family zeroes K4's count before each prefill)
     launches["families"], fam_captured = phase_families(dev)
-    want = {arch: 2 * sum(kind in ("attn", "local") for kind in
-                          build_model(configs.get_config(arch)).kinds)
+    want = {arch: 2 * len(k4_calls(build_model(configs.get_config(arch))))
             for arch, _, _, _ in FAMILIES}
     log(f"[5e] path launches: K4 {launches['families']} (= 2 prefills x "
         f"the attn/local layers, {want})")
     if launches["families"] != want:
         raise AssertionError(f"family path launches {launches['families']}")
+    # the encdec and vlm families, each arch's serving counted on its own
+    launches["modal"], modal_captured = phase_modal(dev)
+    want = {arch: 2 * len(k4_calls(build_model(configs.get_config(arch))))
+            for arch, _, _ in MODAL_FAMILIES}
+    log(f"[5f] path launches: K4 {launches['modal']} (= 2 prefills x the "
+        f"K4 calls of a prefill, {want})")
+    if launches["modal"] != want:
+        raise AssertionError(f"modal path launches {launches['modal']}")
     # the fabric and MPI path, counted on its own: K1 once per NIC step,
     # and a node steps only on ticks its link delivered frames
     k1.launches = 0
@@ -2552,8 +2772,9 @@ def main() -> int:
     # the training path, counted on its own
     captured_bwd, launches["train"], k4b_err, train_step = phase_train(dev)
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
-                            empty, captured_bwd, k4b_err, fam_captured)
-    del captured_bwd, fam_captured
+                            empty, captured_bwd, k4b_err, fam_captured,
+                            modal_captured)
+    del captured_bwd, fam_captured, modal_captured
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the
     # complex stream's first batch, replayed), a prefill and a decode step
@@ -2588,6 +2809,8 @@ def main() -> int:
         f"{sum(n.steps for n in comm.nodes) - steps0} NIC steps")
     del engine, prompt, state, train_step
     for arch, prompt_len, _, _ in FAMILIES:
+        profile_family(dev, arch, prompt_len)
+    for arch, prompt_len, _ in MODAL_FAMILIES:
         profile_family(dev, arch, prompt_len)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,10 @@
 // reference flash_attention_ref computes: softmax(q k^T / sqrt(D)) v with
 // float32 statistics, causal (key j <= query i) and sliding-window
 // (j > i - window) masks on absolute positions from 0, and 0 for a row with
-// no live key.
+// no live key.  An optional per-batch key length kv_len (int32 (B,), the
+// model-level mask of blockwise_attention in src/repro/models/attention.py,
+// whisper's cross-attention) makes key j of batch row b live only if
+// j < kv_len[b], on top of the other masks.
 //
 // Differences from the TPU kernel, by design:
 //  * It reads q (B, Sq, H, D) and k/v (B, Sk, KV, D) through their strides
@@ -16,7 +19,14 @@
 //    kernel lets zero-padded keys in when causal is false).
 //  * Key tiles that the causal or window mask removes for the whole query
 //    tile are never loaded: a local layer at window 512 reads at most
-//    (512 + 128) / 64 tiles per query tile instead of up to Sk / 64.
+//    (512 + 128) / 64 tiles per query tile instead of up to Sk / 64.  With
+//    kv_len, a block's key range ends at min(Sk, kv_len[b]) and the
+//    ragged-end mask uses that bound; the tiles, the TMA ring and the
+//    wgmma body are unchanged.
+//  * The TPU kernel's model-level counterpart, blockwise_attention, lets
+//    zero-padded keys into a non-causal softmax without kv_len; the kernel
+//    computes exact attention, and repro_torch/models/attention.py appends
+//    those zero keys itself where the reference has them.
 //
 // What bounds it on the H100: operations.  At gemma3-1b's prefill (B 4,
 // S 2048, H 4, KV 1, D 256) a global layer does 4 D per live (query, key)
@@ -102,8 +112,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to,
-                   float* __restrict__ lse, int sq, int sk, int h, int group,
-                   int causal, int window, float scale_log2) {
+                   float* __restrict__ lse, const int* __restrict__ kv_len,
+                   int sq, int sk_all, int h, int group, int causal,
+                   int window, float scale_log2) {
   using T = Tiles<D>;
   constexpr int S = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -127,6 +138,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int bi = static_cast<int>(blockIdx.x) % bh / h;
   const int hi = static_cast<int>(blockIdx.x) % bh % h;
   const int kvh = hi / group;
+  // this batch row's keys: [0, sk) (the wrapper keeps kv_len in [1, Sk])
+  const int sk = kv_len != nullptr ? min(sk_all, kv_len[bi]) : sk_all;
 
   // key tiles with at least one live key for some query row of this tile
   const int k_hi = causal ? min(sk, min(sq, q0 + BQ)) : sk;
@@ -377,8 +390,9 @@ template <int D>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ lse, int sq, int sk, int h, int group,
-                  Strides qs, Strides ks, Strides vs, int causal, int window,
+                  float* __restrict__ lse, const int* __restrict__ kv_len,
+                  int sq, int sk_all, int h, int group, Strides qs,
+                  Strides ks, Strides vs, int causal, int window,
                   float scale) {
   constexpr int R = D / 32;
   const int lane = threadIdx.x % 32;
@@ -387,6 +401,7 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   const int64_t bi = blockIdx.y / h;
   const int hi = blockIdx.y % h;
   const int kvh = hi / group;
+  const int sk = kv_len != nullptr ? min(sk_all, kv_len[bi]) : sk_all;
   const float* qp = q + bi * qs.b + static_cast<int64_t>(i) * qs.s + hi * qs.h;
   float qr[R], acc[R];
 #pragma unroll
@@ -424,9 +439,9 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int b, int sq, int sk, int h, int kvh, Strides qs,
-                Strides ks, Strides vs, int causal, int window,
-                cudaStream_t stream) {
+                float* lse, const int* kv_len, int b, int sq, int sk, int h,
+                int kvh, Strides qs, Strides ks, Strides vs, int causal,
+                int window, cudaStream_t stream) {
   using T = Tiles<D>;
   const int64_t blocks = static_cast<int64_t>((sq + BQ - 1) / BQ) * b * h;
   if (blocks > INT_MAX) return -1;
@@ -446,20 +461,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     return -2;
   const float scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
   flash_fwd_bf16<D><<<static_cast<int>(blocks), THREADS, T::SMEM, stream>>>(
-      mq, mk, mv, mo, lse, sq, sk, h, h / kvh, causal, window, scale_log2);
+      mq, mk, mv, mo, lse, kv_len, sq, sk, h, h / kvh, causal, window,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int sq, int sk, int h, int kvh, Strides qs,
-               Strides ks, Strides vs, int causal, int window,
-               cudaStream_t stream) {
+               float* lse, const int* kv_len, int b, int sq, int sk, int h,
+               int kvh, Strides qs, Strides ks, Strides vs, int causal,
+               int window, cudaStream_t stream) {
   const dim3 grid((sq + F32_ROWS - 1) / F32_ROWS, b * h);
   flash_fwd_f32<D><<<grid, F32_ROWS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, h,
-      h / kvh, qs, ks, vs, causal, window,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_len, sq,
+      sk, h, h / kvh, qs, ks, vs, causal, window,
       1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -469,13 +485,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // o (B, Sq, H, D) contiguous; q, k, v by strides (elements).  lse, when
 // not null, float32 (B, H, Sq) contiguous, receives each row's log-sum-exp
 // of the scaled scores (+inf for a row with no live key); K4b reads it.
-// dtype 0 is bfloat16, 1 is float32.  Returns the cudaError of the launch,
-// -1 for a head_dim, dtype or grid the kernel does not take, or -2 when a
+// kv_len, when not null, int32 (B,) with every value in [1, Sk], cuts batch
+// row b's keys to [0, kv_len[b]).  dtype 0 is bfloat16, 1 is float32.
+// Returns the cudaError of the launch, -1 for a head_dim, dtype or grid the kernel does not take, or -2 when a
 // bfloat16 tensor map cannot be built (the driver lacks
 // cuTensorMapEncodeTiled or refuses the strides).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int64_t b,
+    const int* kv_len, int64_t b,
     int64_t sq, int64_t sk, int64_t h, int64_t kvh, int64_t d, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int dtype, int causal, int window,
@@ -492,10 +509,12 @@ extern "C" int repro_flash_attention(
             ikv = static_cast<int>(kvh);
 #define REPRO_FA_CASE(DIM)                                                    \
   case DIM:                                                                   \
-    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, lse, ib, isq, isk, ih,   \
-                                         ikv, qs, ks, vs, causal, w, st)      \
-                      : launch_f32<DIM>(q, k, v, o, lse, ib, isq, isk, ih,    \
-                                        ikv, qs, ks, vs, causal, w, st);
+    return dtype == 0 ? launch_bf16<DIM>(q, k, v, o, lse, kv_len, ib, isq,    \
+                                         isk, ih, ikv, qs, ks, vs, causal, w, \
+                                         st)                                  \
+                      : launch_f32<DIM>(q, k, v, o, lse, kv_len, ib, isq,     \
+                                        isk, ih, ikv, qs, ks, vs, causal, w,  \
+                                        st);
   if (dtype != 0 && dtype != 1) return -1;
   switch (d) {
     REPRO_FA_CASE(64)

@@ -19,6 +19,14 @@ no lse is written (``flash_attention_with_lse`` asks for it).
 ``launches`` counts K4's launches and ``bwd_launches`` K4b's (one per
 backward call).  ``flash_attention_bwd_planted`` runs a variant of K4b
 built with a planted fault, for the checks that must fail on it.
+
+``kv_len`` (int32 or int64 (B,), each value in [1, Sk]) is the per-batch
+key length of whisper's cross-attention (``blockwise_attention``'s
+``kv_len`` in the JAX package): key j of batch row b is live only if
+j < kv_len[b].  K4 takes it as a device pointer; K4b does not take it
+yet, so ``flash_attention_bwd`` with ``kv_len`` raises
+``NotImplementedError`` on CUDA tensors (ROADMAP.md §1: training the
+encdec family on the card) and runs the plain backward on CPU tensors.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 def _lib():
     fn = build.load("flash_attention").repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6
                        + [ctypes.c_int64] * 9 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -77,6 +85,37 @@ def _check_args(q, k, v) -> None:
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def _check_kv_len(q, k, kv_len):
+    """``kv_len`` as int32 (B,) on q's device, contiguous, or None; raises
+    ``ValueError`` for another shape, device or dtype, or a value outside
+    [1, Sk] (no caller sends one: the shapes draw ``enc_len`` = Sk).  The
+    range is read from the device once per tensor and version (a host
+    synchronisation): a prefill's cross-attention layers share one
+    ``enc_len``, so it reads it once."""
+    if kv_len is None:
+        return None
+    if kv_len.shape != (q.shape[0],) or kv_len.device != q.device or \
+            kv_len.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"flash_attention: kv_len must be int32 or int64 "
+                         f"(B,) = ({q.shape[0]},) on q's device")
+    # (its version, its largest value) is kept on the tensor; an inference
+    # tensor keeps no version, so its range is read every call
+    version = None if kv_len.is_inference() else kv_len._version
+    seen = getattr(kv_len, "_repro_kv_len_range", None)
+    if version is None or seen is None or seen[0] != version:
+        lo, hi = (int(x) for x in torch.aminmax(kv_len))
+        if lo < 1:
+            raise ValueError(f"flash_attention: kv_len must be at least 1, "
+                             f"got {lo}")
+        seen = (version, hi)
+        if version is not None:
+            kv_len._repro_kv_len_range = seen
+    if seen[1] > k.shape[1]:
+        raise ValueError(f"flash_attention: kv_len must lie in [1, Sk] = "
+                         f"[1, {k.shape[1]}], got {seen[1]}")
+    return kv_len.to(torch.int32).contiguous()
+
+
 def _check_cuda(q, k, v) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -93,52 +132,60 @@ class _FlashAttention(torch.autograd.Function):
     """K4 forward (with lse), K4b backward (from the saved lse)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        out, lse = _forward(q, k, v, causal, window, kv_len, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.kv_len = causal, window, kv_len
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
-                                         window=ctx.window, lse=lse)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, lse=lse,
+                                         kv_len=ctx.kv_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    kv_len: torch.Tensor = None) -> torch.Tensor:
     """q (B, Sq, H, D); k, v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
 
     Query i and key j are at absolute positions i and j (from 0).  causal
-    keeps j <= i; window > 0 keeps j > i - window.  Scale 1/sqrt(D).
-    Differentiable in q, k and v (backward: ``flash_attention_bwd``)."""
+    keeps j <= i; window > 0 keeps j > i - window; ``kv_len`` (B,) keeps
+    j < kv_len[b].  Scale 1/sqrt(D).  Differentiable in q, k and v
+    (backward: ``flash_attention_bwd``)."""
     _check_args(q, k, v)
+    kv_len = _check_kv_len(q, k, kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, kv_len)
+    return _forward(q, k, v, causal, window, kv_len)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, kv_len: torch.Tensor = None):
     """``flash_attention`` without autograd, and each row's log-sum-exp of
     the scaled, masked scores: (out (B, Sq, H, D), lse float32 (B, H, Sq),
     +inf for a row with no live key).  One K4 launch on CUDA tensors."""
     _check_args(q, k, v)
-    return _forward(q, k, v, causal, window, with_lse=True)
+    return _forward(q, k, v, causal, window, _check_kv_len(q, k, kv_len),
+                    with_lse=True)
 
 
-def _forward(q, k, v, causal: bool, window: int, with_lse: bool = False):
-    """The output, or (output, lse) with ``with_lse``."""
+def _forward(q, k, v, causal: bool, window: int, kv_len=None,
+             with_lse: bool = False):
+    """The output, or (output, lse) with ``with_lse``; ``kv_len`` as
+    ``_check_kv_len`` returns it."""
     global launches
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window, return_lse=with_lse)
+                                        window=window, kv_len=kv_len,
+                                        return_lse=with_lse)
     _check_cuda(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
@@ -149,7 +196,9 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool = False):
         out.zero_()
         return (out, lse.fill_(torch.inf)) if with_lse else out
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, sq, sk, h, kvh,
+                 None if lse is None else lse.data_ptr(),
+                 None if kv_len is None else kv_len.data_ptr(), b, sq, sk, h,
+                 kvh,
                  d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  _DTYPE_CODE[q.dtype], int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -183,14 +232,25 @@ def _bwd_fn(planted: bool):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        lse: torch.Tensor = None):
+                        lse: torch.Tensor = None,
+                        kv_len: torch.Tensor = None):
     """Gradients of ``flash_attention(q, k, v)`` at ``do``, given its output
     ``o`` and, where the caller has it, its row log-sum-exp ``lse``
     (float32 (B, H, Sq), as ``flash_attention_with_lse`` gives it): (dq
     (B, Sq, H, D), dk, dv (B, Sk, KV, D)) in the inputs' dtype.  K4b on
     CUDA tensors (without ``lse``, one K4 launch writes it first; K4b never
-    recomputes it), ``ref.flash_attention_bwd_ref`` on CPU tensors."""
-    return _backward(q, k, v, o, do, causal, window, (), lse)
+    recomputes it), ``ref.flash_attention_bwd_ref`` on CPU tensors.  With
+    ``kv_len``: the plain backward on CPU tensors; on CUDA tensors it
+    raises ``NotImplementedError``, since K4b takes no key length yet."""
+    if kv_len is not None:
+        _check_args(q, k, v)
+        kv_len = _check_kv_len(q, k, kv_len)
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "flash_attention_bwd: K4b takes no kv_len yet (ROADMAP.md "
+                "§1, \"Modules to port\": training the encdec family on "
+                "the card)")
+    return _backward(q, k, v, o, do, causal, window, (), lse, kv_len)
 
 
 def flash_attention_bwd_planted(q, k, v, o, do, *, causal: bool = True,
@@ -203,7 +263,8 @@ def flash_attention_bwd_planted(q, k, v, o, do, *, causal: bool = True,
     ``bwd_launches``."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd_planted: CUDA tensors only")
-    return _backward(q, k, v, o, do, causal, window, (fault, tile), lse)
+    return _backward(q, k, v, o, do, causal, window, (fault, tile), lse,
+                     None)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -214,7 +275,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
-              lse):
+              lse, kv_len):
     global bwd_launches
     _check_args(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
@@ -229,7 +290,8 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
                          f"{(b, h, sq)} on q's device")
     if q.device.type == "cpu":
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                            window=window, lse=lse)
+                                            window=window, lse=lse,
+                                            kv_len=kv_len)
     _check_cuda(q, k, v)
     q, k, v, o, do = (_aligned(t.to(q.dtype)) for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \

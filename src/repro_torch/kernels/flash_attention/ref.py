@@ -4,7 +4,9 @@ and its backward (K4b).
 ``flash_attention_ref`` computes what ``flash_attention_ref`` of the JAX
 package computes (a materialized softmax in float32, scale 1/sqrt(D),
 causal and sliding-window masks with absolute positions from 0 in both q
-and k, a fully masked row gives 0), in the model's layout and with GQA
+and k, a fully masked row gives 0), with the per-batch key length
+``kv_len`` of ``blockwise_attention`` on top (key j of batch row b is live
+only if j < kv_len[b]), in the model's layout and with GQA
 folded by a reshape instead of a repeat of K/V.  ``flash_attention_bwd_ref``
 writes out the backward's formulas on the same materialized scores.  Both
 compute in float32, or in float64 for float64 inputs (gradcheck).
@@ -18,14 +20,16 @@ import torch
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
+                        kv_len: torch.Tensor = None,
                         return_lse: bool = False):
     """q (B, Sq, H, D); k, v (B, Sk, KV, D), H % KV == 0 -> (B, Sq, H, D).
+    ``kv_len``: None, or int32 / int64 (B,).
 
     With ``return_lse``, also each row's log-sum-exp of the scaled, masked
     scores, float32 (B, H, Sq) (float64 for float64 inputs): +inf for a row
     with no live key, for which exp(s - lse) is 0, as K4 writes it."""
     b, sq, h, d = q.shape
-    p, denom, lse = _probs(q, k, causal, window)
+    p, denom, lse = _probs(q, k, causal, window, kv_len)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(_compute_dtype(q)))
     o = o / denom.permute(0, 3, 1, 2)[..., None]
     o = o.reshape(b, sq, h, d).to(q.dtype)
@@ -36,9 +40,9 @@ def _compute_dtype(q: torch.Tensor) -> torch.dtype:
     return torch.promote_types(q.dtype, torch.float32)
 
 
-def _scores(q, k, causal: bool, window: int):
+def _scores(q, k, causal: bool, window: int, kv_len=None):
     """Scaled scores (B, KV, G, Sq, Sk), -1e30 where masked, and the mask
-    (Sq, Sk)."""
+    (Sq, Sk), or (B, 1, 1, Sq, Sk) with ``kv_len``."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     ct = _compute_dtype(q)
@@ -51,14 +55,17 @@ def _scores(q, k, causal: bool, window: int):
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
+    if kv_len is not None:
+        live = kpos < kv_len.to(q.device)[:, None, None]       # (B, 1, Sk)
+        mask = (mask & live)[:, None, None]
     return torch.where(mask, s, -1e30), mask
 
 
-def _probs(q, k, causal: bool, window: int):
+def _probs(q, k, causal: bool, window: int, kv_len=None):
     """Unnormalised softmax numerators p (B, KV, G, Sq, Sk), 0 where masked,
     their row sums clamped to 1e-30 (a fully masked row gives 0), and the
     rows' log-sum-exp (B, KV, G, Sq), +inf for a fully masked row."""
-    s, mask = _scores(q, k, causal, window)
+    s, mask = _scores(q, k, causal, window, kv_len)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)
@@ -70,23 +77,25 @@ def _probs(q, k, causal: bool, window: int):
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, *, causal: bool = True,
-                            window: int = 0, lse: torch.Tensor = None):
+                            window: int = 0, lse: torch.Tensor = None,
+                            kv_len: torch.Tensor = None):
     """Gradients of ``flash_attention_ref`` at ``do``: (dq (B, Sq, H, D),
     dk, dv (B, Sk, KV, D)) in the inputs' dtypes.  ``o`` is the forward's
     output, as the kernel reads it: P = softmax(S), dV = P^T dO,
     dP = dO V^T, dS = P * (dP - Delta) with Delta_i = sum(dO_i * O_i),
     dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D); dK and dV summed over each
     KV head's G query heads.  Given the forward's ``lse`` (B, H, Sq), P is
-    exp(S - lse), as K4b forms it; else the softmax of S."""
+    exp(S - lse), as K4b forms it; else the softmax of S.  ``kv_len`` as
+    in ``flash_attention_ref``."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     ct = _compute_dtype(q)
     if lse is None:
-        p, denom, _ = _probs(q, k, causal, window)
+        p, denom, _ = _probs(q, k, causal, window, kv_len)
         p = p / denom[..., None]                           # (B,KV,G,Sq,Sk)
     else:
-        s, mask = _scores(q, k, causal, window)
+        s, mask = _scores(q, k, causal, window, kv_len)
         p = torch.where(mask, torch.exp(
             s - lse.to(ct).reshape(b, kvh, g, sq)[..., None]), 0.0)
     qf = q.to(ct).reshape(b, sq, kvh, g, d)

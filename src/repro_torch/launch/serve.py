@@ -5,17 +5,24 @@ PyTorch port of ``repro.launch.serve``.
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-Any arch of the dense, moe, ssm and hybrid families serves
-(``--arch qwen2-moe-a2.7b``, ``mamba2-780m``, ``recurrentgemma-9b``;
+Every arch serves (``--arch qwen2-moe-a2.7b``, ``mamba2-780m``,
+``recurrentgemma-9b``, ``whisper-tiny``, ``qwen2-vl-2b``, ...;
 kimi-k2-1t-a32b only at ``--smoke``: its full width does not fit one
-card); whisper-tiny and qwen2-vl-2b raise (not ported yet).
+card).  ``--prompt-len`` is the whole prompt: for whisper-tiny the
+decoder's tokens, beside ``enc_seq`` (1,500) encoder frames; for
+qwen2-vl-2b ``min(img_tokens, prompt_len // 2)`` image embeddings, then
+text.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --batch 4 --prompt-len 224 --gen 32
 
 Weights are drawn from ``--seed`` (a ``torch.Generator`` on the device)
-and the prompts from the same seed with numpy, as ``repro.launch.serve``
-draws them.  Prints the prefill time and the decode time per step (host
-clock around calls that end in a device synchronisation; the first of the
-``--gen`` tokens comes from the prefill, so ``--gen`` - 1 decode steps
-run) and, on CUDA, the card's name and power limit.
+and every input of the prompt batch (tokens and the modality stubs) from
+the same seed with numpy, as ``repro.launch.serve`` draws them. Prints
+the prefill time and the decode time per step (host clock around calls
+that end in a device synchronisation; the first of the ``--gen`` tokens
+comes from the prefill, so ``--gen`` - 1 decode steps run) and, on CUDA,
+the card's name and power limit.
 """
 from __future__ import annotations
 

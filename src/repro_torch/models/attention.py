@@ -1,13 +1,27 @@
-"""GQA attention (the ``attn`` and ``local`` layers of the dense, moe and
-hybrid families); PyTorch port of ``repro.models.attention``.
+"""GQA attention: the ``attn`` and ``local`` layers, whisper's
+bidirectional encoder and ``cross`` attention; PyTorch port of
+``repro.models.attention``.
 
 The full-sequence (prefill) path goes through kernel K4
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), which
 computes the function ``blockwise_attention`` computes in the JAX package:
-causal attention, with a sliding window on ``local`` layers.  The
-single-token decode path is plain torch, as it is plain jnp there.  The
-``cross`` kind, ``kv_len`` and ``q_offset`` belong to the encdec family,
-which is not ported yet (ROADMAP.md, "Modules to port").
+causal attention, with a sliding window on ``local`` layers; non-causal
+for the encoder and cross-attention, the latter with the per-batch key
+length ``kv_len`` (``enc_len``).  The single-token decode paths are plain
+torch, as they are plain jnp there.  ``blockwise_attention``'s
+``q_offset`` has no caller there and is not ported.
+
+The padded-key rule, made explicit here and nowhere else.
+``blockwise_attention`` pads K and V with zero rows up to a multiple of
+``min(block_k, Sk)`` (``src/repro/models/attention.py:113-118``) and masks
+them only under ``causal`` or ``kv_len``; so in a non-causal call without
+``kv_len`` each zero key scores 0 and enters every softmax denominator
+(whisper's encoder, block 512, ``enc_seq`` 1,500: 36 such keys).  K4 and
+``flash_attention_ref`` compute exact attention, so ``bidirectional``
+appends the same zero rows before K4 when it is given no ``kv_len``
+(block 512 for the encoder, ``cfg.attn_block_k`` for cross-attention);
+with ``kv_len`` the pad would be masked anyway, and it appends none.
+Causal calls need none: a padded key lies past every query.
 
 Unlike the JAX functions, ``fill_kv_cache`` and ``attend_decode`` write
 the cache in place and return the same tensors.
@@ -18,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -25,9 +40,13 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+ENCODER_BLOCK = 512       # blockwise_attention's default block_k
 
 
-def attn_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
+def attn_init(g: torch.Generator, cfg: ModelConfig, cross: bool = False
+              ) -> nn.ParameterDict:
+    """Projections wq, wk, wv, wo; q/k/v biases where ``cfg.qkv_bias``,
+    except on cross-attention; q/k norms where ``cfg.qk_norm``."""
     d, dt = cfg.d_model, L.dtype_of(cfg.dtype)
     s = float(1.0 / np.sqrt(d))
     p = {"wq": L._normal((d, cfg.q_dim), s, dt, g),
@@ -35,7 +54,7 @@ def attn_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
          "wv": L._normal((d, cfg.kv_dim), s, dt, g),
          "wo": L._normal((cfg.q_dim, d), s, dt, g)}
     z = dict(dtype=dt, device=g.device)
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros(cfg.q_dim, **z)
         p["bk"] = torch.zeros(cfg.kv_dim, **z)
         p["bv"] = torch.zeros(cfg.kv_dim, **z)
@@ -45,37 +64,70 @@ def attn_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
     return nn.ParameterDict({k: L.param(v) for k, v in p.items()})
 
 
-def _project_qkv(p, cfg: ModelConfig, x, positions):
-    """Returns q (B,S,H,D), k/v (B,S,KV,D) with RoPE applied."""
-    b, s, _ = x.shape
+def _project_qkv(p, cfg: ModelConfig, x, kv_x, positions, kv_positions):
+    """Returns q (B,Sq,H,D), k/v (B,Sk,KV,D): queries from ``x``, keys and
+    values from ``kv_x``; RoPE (M-RoPE where ``cfg.mrope``, positions
+    (3, B, S)) only when ``positions`` is not None."""
+    b, sq, _ = x.shape
+    sk = kv_x.shape[1]
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(b, sq, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm({"scale": p["q_norm"]}, q, cfg.norm_eps)
         k = L.rmsnorm({"scale": p["k_norm"]}, k, cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if positions is not None and cfg.pos_kind == "rope":
+        rope = L.apply_mrope if cfg.mrope else L.apply_rope
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
+def bidirectional(q, k, v, *, block: int, kv_len=None):
+    """Non-causal attention through K4, as ``blockwise_attention(q, k, v,
+    causal=False, kv_len=kv_len, block_k=block)`` computes it: without
+    ``kv_len``, with the reference's zero-padded keys (module docstring)."""
+    if kv_len is None:
+        pad = (-k.shape[1]) % min(block, k.shape[1])
+        if pad:
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return fa_ops.flash_attention(q, k, v, causal=False, window=0,
+                                  kv_len=kv_len)
+
+
 def attend_train(p, cfg: ModelConfig, x, positions, *, kind: str,
-                 return_kv: bool = False):
-    """Full-sequence causal self-attention for prefill; kind: attn|local.
+                 enc_out=None, enc_len=None, return_kv: bool = False):
+    """Full-sequence attention for prefill; kind: attn|local (causal
+    self-attention) or cross (queries from ``x``, keys and values from the
+    encoder's ``enc_out``, keys past ``enc_len`` masked; no RoPE).
     Returns (B, S, d_model), or ((B, S, d), (k, v)) when return_kv."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = fa_ops.flash_attention(
-        q, k, v, causal=True, window=cfg.window if kind == "local" else 0)
+    if kind == "cross":
+        q, k, v = _project_qkv(p, cfg, x, enc_out, None, None)
+        out = bidirectional(q, k, v, block=cfg.attn_block_k, kv_len=enc_len)
+    else:
+        q, k, v = _project_qkv(p, cfg, x, x, positions, positions)
+        out = fa_ops.flash_attention(
+            q, k, v, causal=True, window=cfg.window if kind == "local" else 0)
     b, s = x.shape[:2]
     y = out.reshape(b, s, cfg.q_dim) @ p["wo"]
     if return_kv:
         return y, (k, v)
     return y
+
+
+def attend_encoder(p, cfg: ModelConfig, x):
+    """Whisper's encoder self-attention: bidirectional, no RoPE, the
+    reference's default block of 512 (so its zero-padded keys)."""
+    q, k, v = _project_qkv(p, cfg, x, x, None, None)
+    out = bidirectional(q, k, v, block=ENCODER_BLOCK)
+    b, s = x.shape[:2]
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
 def fill_kv_cache(cache_k, cache_v, k, v, kind: str, window: int):
@@ -98,16 +150,19 @@ def fill_kv_cache(cache_k, cache_v, k, v, kind: str, window: int):
 
 
 def attend_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
-                  kind: str):
+                  kind: str, positions=None):
     """Single-token decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D) where
     C = max_len (full) or window (local, ring buffer).  pos: int or (B,)
-    absolute position of the new token.  Writes the new K/V into the cache
-    in place; returns (y, cache_k, cache_v)."""
+    absolute position of the new token; ``positions``, its RoPE positions
+    where they are not (B, 1) = pos (M-RoPE's (3, B, 1)).  Writes the new
+    K/V into the cache in place; returns (y, cache_k, cache_v)."""
     b = x.shape[0]
     c = cache_k.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int64,
                           device=x.device).expand(b)
-    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
+    if positions is None:
+        positions = pos[:, None]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, positions, positions)
     slot = pos % c if kind == "local" else pos      # ring buffer for local
     rows = torch.arange(b, device=x.device)
     cache_k[rows, slot] = k_new[:, 0]
@@ -131,3 +186,22 @@ def attend_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     out = torch.einsum("bkgt,btkd->bkgd", o.to(cache_v.dtype), cache_v)
     y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
     return y, cache_k, cache_v
+
+
+def attend_decode_cross(p, cfg: ModelConfig, x, enc_k, enc_v, enc_len):
+    """Cross-attention of one decode token.  x: (B, 1, d); enc_k/v:
+    (B, T, KV, D), the encoder's keys and values from the prefill;
+    enc_len: (B,) or None, keys at or past it masked.  q is ``x @ wq``
+    alone: no bias, norm or RoPE, as in the JAX package."""
+    b = x.shape[0]
+    g = cfg.n_heads // cfg.n_kv_heads
+    qh = (x @ p["wq"]).reshape(b, cfg.n_kv_heads, g, cfg.head_dim)
+    s = torch.einsum("bkgd,btkd->bkgt", qh.to(torch.float32),
+                     enc_k.to(torch.float32)) / math.sqrt(cfg.head_dim)
+    if enc_len is not None:
+        live = torch.arange(enc_k.shape[1], device=x.device)[None, :] \
+            < enc_len[:, None]
+        s = torch.where(live[:, None, None, :], s, NEG_INF)
+    o = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", o.to(enc_v.dtype), enc_v)
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"]

@@ -1,5 +1,5 @@
 """Carry the JAX package's model parameters, optimizer state and
-checkpoints into the port (dense, moe, ssm and hybrid families).
+checkpoints into the port (every model family).
 
 The JAX tree holds the layers as ``head_blocks`` (``cfg.first_k_dense``
 dense layers; empty but for kimi-k2), ``scan_blocks`` (one entry per
@@ -8,7 +8,10 @@ depth: ``moe/shared/up`` is three levels down), then ``tail_blocks`` (the
 pattern's leftover layers).  The port keeps one block per layer in
 absolute order: the head layers, then layer ``n_head + period *
 len(pattern) + pos`` from slice ``period`` of ``scan_blocks[pos]``, then
-the tail.  Leaves the JAX package holds in float32 whatever
+the tail.  An encdec tree's decoder blocks hold ``normx`` and ``xattn``
+(stacked like the rest) and its ``encoder`` is a list of blocks, which
+the port keeps as ``Params.encoder`` in the same order.  Leaves the JAX
+package holds in float32 whatever
 ``cfg.dtype`` is (``moe/router``, ``rglru/{b_r,b_i,lam}``,
 ``ssm/{a_log,dt_bias,d_skip}``) stay float32; the rest take
 ``cfg.dtype``.
@@ -56,11 +59,8 @@ def _slice(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def port_layout(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX tree's leaves in the port's layout, ``Params.tree()``'s:
-    {"embed", "blocks": [one per layer, absolute order], "final_norm"}."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"params_from_numpy: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, \"Modules to port\")")
+    {"embed", "blocks": [one per layer, absolute order], "final_norm"},
+    and for encdec "encoder": [one per encoder layer]."""
     period = len(cfg.layer_pattern)
     n_periods = (cfg.n_layers - cfg.first_k_dense) // period
     scan = tree.get("scan_blocks", [])
@@ -72,8 +72,14 @@ def port_layout(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"params_from_numpy: {len(blocks)} blocks for "
                          f"{cfg.n_layers} layers")
-    return {"embed": tree["embed"], "blocks": blocks,
-            "final_norm": tree["final_norm"]}
+    out = {"embed": tree["embed"], "blocks": blocks,
+           "final_norm": tree["final_norm"]}
+    if cfg.family == "encdec":
+        if len(tree["encoder"]) != cfg.enc_layers:
+            raise ValueError(f"params_from_numpy: {len(tree['encoder'])} "
+                             f"encoder blocks for {cfg.enc_layers} layers")
+        out["encoder"] = list(tree["encoder"])
+    return out
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
@@ -84,11 +90,13 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     dev = resolve_device(device)
     dt = L.dtype_of(cfg.dtype)
     t = port_layout(cfg, tree)
-    blocks = [nn.ModuleDict({k: _pdict(v, dt, dev, _FLOAT32.get(k, ()))
-                             for k, v in b.items()})
-              for b in t["blocks"]]
-    return Params(_pdict(t["embed"], dt, dev), blocks,
-                  _pdict(t["final_norm"], dt, dev))
+
+    def blocks(trees):
+        return [nn.ModuleDict({k: _pdict(v, dt, dev, _FLOAT32.get(k, ()))
+                               for k, v in b.items()}) for b in trees]
+    return Params(_pdict(t["embed"], dt, dev), blocks(t["blocks"]),
+                  _pdict(t["final_norm"], dt, dev),
+                  blocks(t["encoder"]) if "encoder" in t else None)
 
 
 def opt_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],

@@ -3,9 +3,9 @@ logits; PyTorch port of ``repro.models.layers``.
 
 Parameters are held in ``nn.ParameterDict``s keyed as in the JAX package's
 parameter trees (``{"scale"}``, ``{"up", "gate", "down"}``, ...), so the
-functions here read them the same way.  ``apply_mrope`` and
-``sinusoid_positions`` belong to the vlm and encdec families, which are not
-ported yet (ROADMAP.md, "Modules to port").
+functions here read them the same way.  ``apply_mrope`` (qwen2-vl's
+M-RoPE) serves the vlm family and ``sinusoid_positions`` (a numpy copy of
+the JAX package's table) whisper's encoder.
 """
 from __future__ import annotations
 
@@ -74,11 +74,71 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """Half-split rotation.  x: (B, S, H, D); positions: (B, S) int."""
     freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
     angles = positions[..., None].to(torch.float32) * freqs     # (B,S,D/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """The half-split rotation of x (B, S, H, D) by angles (B, S, D/2)."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int):
+    """qwen2-vl's default split of the head_dim / 2 frequency pairs into
+    (temporal, height, width): (16, 24, 24) at head_dim 128."""
+    t = head_dim // 8
+    h = (head_dim // 2 - t) // 2
+    return (t, h, head_dim // 2 - t - h)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_components(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The position component (0, 1, 2) of each frequency pair."""
+    return torch.as_tensor(np.concatenate([np.full(n, i) for i, n in
+                                           enumerate(sections)]),
+                           dtype=torch.int64, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=None) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  x: (B, S, H, D); positions: (3, B, S) int, the
+    (temporal, height, width) components.  The D / 2 frequency pairs are
+    split into ``sections`` (in pairs, summing to D / 2; default
+    ``mrope_sections(D)``), each rotated by its own component.  With three
+    equal components it is ``apply_rope``."""
+    d = x.shape[-1]
+    sections = tuple(sections or mrope_sections(d))
+    if sum(sections) != d // 2:
+        raise ValueError(f"apply_mrope: sections {sections} do not sum to "
+                         f"head_dim / 2 = {d // 2}")
+    freqs = _rope_freqs_on(d, float(theta), x.device)
+    comp = _mrope_components(sections, x.device)
+    pos = positions.to(torch.float32)[comp]                   # (D/2, B, S)
+    return _rotate(x, pos.permute(1, 2, 0) * freqs)
+
+
+# ------------------------------------------------------------- sinusoids
+def sinusoid_positions(seq: int, d: int) -> np.ndarray:
+    """Whisper-style sinusoidal absolute position table, float32 (seq, d):
+    sin in the even columns, cos in the odd."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / (10000 ** (dim / d))
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoid_on(seq: int, d: int, dtype: torch.dtype, device: torch.device
+                ) -> torch.Tensor:
+    """``sinusoid_positions`` in ``dtype`` on ``device``, copied there once."""
+    return torch.as_tensor(sinusoid_positions(seq, d), device=device
+                           ).to(dtype)
 
 
 # --------------------------------------------------------------------- MLP

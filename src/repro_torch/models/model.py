@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe, ssm and hybrid families; PyTorch
-port of ``repro.models.model``.
+"""Model assembly for every family (dense, moe, ssm, hybrid, encdec, vlm);
+PyTorch port of ``repro.models.model``.
 
 The JAX package scans one period of the layer pattern over stacked
 parameters, with ``cfg.first_k_dense`` head layers before it (kimi-k2's
@@ -12,7 +12,14 @@ onto that order.
 Blocks by family: dense, attention (``attn``/``local``) and an MLP; moe,
 the same with ``models.moe`` in place of the MLP after the head layers;
 ssm, a mamba2 mixer (``models.ssm``) and no FFN; hybrid, ``rglru``
-(``models.rglru``) or ``local`` mixers, each with an MLP.
+(``models.rglru``) or ``local`` mixers, each with an MLP; encdec
+(whisper), dense decoder blocks with a cross-attention (``normx``,
+``xattn``) after the self-attention, over the output of an encoder
+(``Params.encoder``: ``cfg.enc_layers`` non-causal ``attn`` blocks over
+the stubbed frame embeddings ``enc_frames`` plus sinusoidal positions,
+no final norm); vlm (qwen2-vl), dense blocks over the stubbed image
+embeddings ``img_embeds`` prepended to the text, with M-RoPE positions
+(3, B, S) from the batch.
 
 Entry points:
   init(generator)                          -> params
@@ -21,15 +28,23 @@ Entry points:
   prefill(params, batch, max_len)          -> (last logits, cache)
   decode_step(params, tokens, cache, pos)  -> (logits, cache)
   init_cache(batch_size, max_len, device)  -> cache
+  encode_for_decode(params, batch, cache)  -> cache (encdec)
 
 The cache is a list with one dict per layer: ``{"k", "v"}`` for
 attention, ``{"conv", "h"}`` for rglru and ``{"conv", "ssd"}`` for ssm
 layers; ``prefill`` fills a fresh one and ``decode_step`` updates it in
-place.  MoE layers run at ``cfg.moe_capacity_factor`` in the forward and
-the prefill and at ``n_experts`` (drop-free) in decode; ``aux``, their
+place.  An encdec layer's dict also holds ``xk``, ``xv`` (B, enc_seq, KV,
+D), the encoder's cross-attention keys and values, and ``enc_len`` (B,)
+int32, one tensor shared by every layer, where the JAX package keeps
+``cache["enc_len"]`` once.  Like the JAX package's, ``prefill`` and
+``encode_for_decode`` set it to the full encoder length, not to the
+batch's ``enc_len``: the prefill's cross-attention masks keys past the
+batch's ``enc_len``, but decode attends to every frame.
+
+MoE layers run at ``cfg.moe_capacity_factor`` in the forward and the
+prefill and at ``n_experts`` (drop-free) in decode; ``aux``, their
 load-balancing loss summed over layers, is added to ``loss_fn``'s loss.
-The encdec and vlm families are not ported yet (ROADMAP.md, "Modules to
-port").
+vlm image positions carry no next-token loss.
 
 Remat (``cfg.remat``), when autograd records the forward: each block runs
 under ``torch.utils.checkpoint`` (non-reentrant), where the JAX package
@@ -48,6 +63,7 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
@@ -65,7 +81,7 @@ ATTENTION = ("attn", "local")
 
 # ===================================================================== blocks
 def _block_init(g: torch.Generator, cfg: ModelConfig, kind: str,
-                moe: bool) -> nn.ModuleDict:
+                moe: bool, cross: bool = False) -> nn.ModuleDict:
     dt = L.dtype_of(cfg.dtype)
     p = {"norm1": L.rmsnorm_init(cfg.d_model, dt, g.device)}
     if kind in ATTENTION:
@@ -77,6 +93,9 @@ def _block_init(g: torch.Generator, cfg: ModelConfig, kind: str,
         return nn.ModuleDict(p)                    # mamba2: mixer only
     else:
         raise ValueError(kind)
+    if cross:
+        p["normx"] = L.rmsnorm_init(cfg.d_model, dt, g.device)
+        p["xattn"] = A.attn_init(g, cfg, cross=True)
     p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, g.device)
     if moe:
         p["moe"] = M.moe_init(g, cfg)
@@ -86,11 +105,12 @@ def _block_init(g: torch.Generator, cfg: ModelConfig, kind: str,
 
 
 def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
-                       cache=None) -> Tuple[torch.Tensor,
-                                            Optional[torch.Tensor]]:
+                       enc_out=None, enc_len=None, cache=None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block over the full sequence.  Returns (h, the MoE aux loss or
     None).  With ``cache`` (prefill) the block's K/V, or its recurrent
-    state, are written into it with decode-compatible addressing."""
+    state, are written into it with decode-compatible addressing, and a
+    cross-attention's keys and values over ``enc_out`` too."""
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
     if kind in ATTENTION:
         if cache is not None:
@@ -109,6 +129,15 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
         else:
             y = apply(p[kind], cfg, x)
     h = h + y
+    if "xattn" in p:
+        xx = L.rmsnorm(p["normx"], h, cfg.norm_eps)
+        y, (xk, xv) = A.attend_train(p["xattn"], cfg, xx, None, kind="cross",
+                                     enc_out=enc_out, enc_len=enc_len,
+                                     return_kv=True)
+        if cache is not None:
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+        h = h + y
     if "norm2" not in p:                           # mamba2 blocks: no FFN
         return h, None
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
@@ -118,17 +147,22 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
     return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind), None
 
 
-def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos):
+def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
+                        positions=None):
     """One block, single token; updates ``cache`` in place."""
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
     if kind in ATTENTION:
         y, _, _ = A.attend_decode(p["attn"], cfg, x, cache["k"], cache["v"],
-                                  pos, kind=kind)
+                                  pos, kind=kind, positions=positions)
     elif kind == "rglru":
         y, _ = R.rglru_apply_decode(p["rglru"], cfg, x, cache)
     else:
         y, _ = S.ssm_apply_decode(p["ssm"], cfg, x, cache)
     h = h + y
+    if "xattn" in p:
+        xx = L.rmsnorm(p["normx"], h, cfg.norm_eps)
+        h = h + A.attend_decode_cross(p["xattn"], cfg, xx, cache["xk"],
+                                      cache["xv"], cache["enc_len"])
     if "norm2" not in p:
         return h
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
@@ -149,23 +183,30 @@ def _tree(m):
 
 class Params(nn.Module):
     """The model's parameters: ``embed`` ({"tok", "lm_head"}), ``blocks``
-    (one ModuleDict per layer, absolute order) and ``final_norm``
-    ({"scale"})."""
+    (one ModuleDict per layer, absolute order), ``final_norm``
+    ({"scale"}) and, for encdec, ``encoder`` (one ModuleDict per encoder
+    layer; None for the other families)."""
 
     def __init__(self, embed: nn.ParameterDict, blocks: List[nn.ModuleDict],
-                 final_norm: nn.ParameterDict):
+                 final_norm: nn.ParameterDict,
+                 encoder: Optional[List[nn.ModuleDict]] = None):
         super().__init__()
         self.embed = embed
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = final_norm
+        self.encoder = None if encoder is None else nn.ModuleList(encoder)
 
     def tree(self) -> Dict:
         """The same parameter tensors as a tree of dicts and lists
         (``repro_torch.train.tree``): {"embed", "blocks": [per layer],
-        "final_norm"}, the form the optimizer and checkpoints take."""
-        return {"embed": _tree(self.embed),
-                "blocks": [_tree(blk) for blk in self.blocks],
-                "final_norm": _tree(self.final_norm)}
+        "final_norm"} and, for encdec, "encoder": [per layer]; the form
+        the optimizer and checkpoints take."""
+        t = {"embed": _tree(self.embed),
+             "blocks": [_tree(blk) for blk in self.blocks],
+             "final_norm": _tree(self.final_norm)}
+        if self.encoder is not None:
+            t["encoder"] = [_tree(blk) for blk in self.encoder]
+        return t
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -196,19 +237,45 @@ class Model:
         """Random weights drawn from ``generator`` on its device, at the JAX
         package's scales (the numbers differ: another generator)."""
         cfg, g = self.cfg, generator
+        cross = cfg.family == "encdec"
         embed = L.embed_init(g, cfg)
-        blocks = [_block_init(g, cfg, kind, cfg.moe_layer(i))
+        blocks = [_block_init(g, cfg, kind, cfg.moe_layer(i), cross=cross)
                   for i, kind in enumerate(self.kinds)]
+        encoder = ([_block_init(g, cfg, "attn", False)
+                    for _ in range(cfg.enc_layers)] if cross else None)
         return Params(embed, blocks,
                       L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg.dtype),
-                                     g.device))
+                                     g.device), encoder)
 
     # ------------------------------------------------------------- forward
-    def _embed_inputs(self, params: Params, tokens: torch.Tensor):
-        h = L.embed_tokens(params.embed, tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=h.device).expand(b, s)
-        return h, positions
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """Token embeddings, with vlm's image embeddings prepended.
+        Returns (h, positions): (B, S) positions 0..S-1, or vlm's (3, B, S)
+        M-RoPE positions from the batch."""
+        h = L.embed_tokens(params.embed, batch["tokens"])
+        if self.cfg.family == "vlm":
+            h = torch.cat([batch["img_embeds"].to(h.dtype), h], dim=1)
+            return h, batch["positions"]
+        b, s = h.shape[:2]
+        return h, torch.arange(s, device=h.device).expand(b, s)
+
+    def _encode(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        """The encoder's output over ``batch["enc_frames"]`` (B, T, d), for
+        encdec (None for the other families): the frames in the model
+        dtype plus sinusoidal positions, then the encoder blocks."""
+        cfg = self.cfg
+        if cfg.family != "encdec":
+            return None
+        dt = L.dtype_of(cfg.dtype)
+        h = batch["enc_frames"].to(dt)
+        h = h + L.sinusoid_on(h.shape[1], cfg.d_model, dt, h.device)[None]
+        for p in params.encoder:
+            x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
+            h = h + A.attend_encoder(p["attn"], cfg, x)
+            x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
+            h = h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)
+        return h
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -217,12 +284,13 @@ class Model:
                            out_dtype=L.dtype_of(cfg.logits_dtype),
                            true_vocab=cfg.vocab)
 
-    def _block(self, p, kind: str, h, positions):
+    def _block(self, p, kind: str, h, positions, enc_out, enc_len):
         """One block, under ``cfg.remat`` when autograd records.  Returns
         (h, aux or None)."""
         remat = self.cfg.remat
         if remat == "none" or not torch.is_grad_enabled():
-            return _block_apply_train(p, self.cfg, kind, h, positions)
+            return _block_apply_train(p, self.cfg, kind, h, positions,
+                                      enc_out, enc_len)
         if remat == "dots":
             context = functools.partial(
                 ckpt.create_selective_checkpoint_contexts, _save_dots)
@@ -231,16 +299,18 @@ class Model:
         else:
             raise ValueError(f"remat {remat!r}")
         return ckpt.checkpoint(_block_apply_train, p, self.cfg, kind, h,
-                               positions, use_reentrant=False,
-                               context_fn=context)
+                               positions, enc_out, enc_len,
+                               use_reentrant=False, context_fn=context)
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  Returns (logits (B, S, V), aux loss)."""
-        h, positions = self._embed_inputs(params, batch["tokens"])
+        h, positions = self._embed_inputs(params, batch)
+        enc_out = self._encode(params, batch)
+        enc_len = batch.get("enc_len") if enc_out is not None else None
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for p, kind in zip(params.blocks, self.kinds):
-            h, a = self._block(p, kind, h, positions)
+            h, a = self._block(p, kind, h, positions, enc_out, enc_len)
             if a is not None:
                 aux = aux + a
         return self._logits(params, h), aux
@@ -249,14 +319,22 @@ class Model:
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy over ``batch["targets"]`` (any integer
-        dtype), weighted by ``batch["loss_mask"]`` where given.  Returns
-        (ce + aux, {"ce", "aux", "ppl_proxy"}), 0-d float32 tensors."""
+        dtype), weighted by ``batch["loss_mask"]`` where given; for vlm the
+        image positions carry no loss (targets 0, weight 0 there, and
+        ``loss_mask`` is not read).  Returns (ce + aux, {"ce", "aux",
+        "ppl_proxy"}), 0-d float32 tensors."""
         logits, aux = self.forward(params, batch)
         targets = batch["targets"].to(torch.int64)
-        mask = batch.get("loss_mask")
-        if mask is None:
-            mask = torch.ones(targets.shape, dtype=torch.float32,
-                              device=targets.device)
+        if self.cfg.family == "vlm":
+            n_img = batch["img_embeds"].shape[1]
+            targets = F.pad(targets, (n_img, 0))
+            mask = (torch.arange(targets.shape[1], device=targets.device)
+                    >= n_img).to(torch.float32).expand(targets.shape)
+        else:
+            mask = batch.get("loss_mask")
+            if mask is None:
+                mask = torch.ones(targets.shape, dtype=torch.float32,
+                                  device=targets.device)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         denom = torch.clamp(mask.sum(), min=1.0)
@@ -269,12 +347,17 @@ class Model:
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 max_len: int) -> Tuple[torch.Tensor, Cache]:
         """Process a full prompt.  Returns (last-position logits (B, V),
-        filled cache); ``decode_step`` continues from position S."""
-        h, positions = self._embed_inputs(params, batch["tokens"])
+        filled cache); ``decode_step`` continues from position S (for vlm
+        S counts the image tokens)."""
+        h, positions = self._embed_inputs(params, batch)
+        enc_out = self._encode(params, batch)
+        enc_len = batch.get("enc_len") if enc_out is not None else None
         cache = self.init_cache(h.shape[0], max_len, h.device)
         for p, c, kind in zip(params.blocks, cache, self.kinds):
             h, _ = _block_apply_train(p, self.cfg, kind, h, positions,
-                                      cache=c)
+                                      enc_out, enc_len, cache=c)
+        if enc_out is not None:                 # as the JAX package does
+            cache[0]["enc_len"].fill_(enc_out.shape[1])
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     # --------------------------------------------------------------- cache
@@ -283,6 +366,8 @@ class Model:
         dev = resolve_device(device)
         dt = L.dtype_of(cfg.dtype)
         cache = []
+        enc_len = (torch.zeros(batch, dtype=torch.int32, device=dev)
+                   if cfg.family == "encdec" else None)
         for kind in self.kinds:
             if kind == "rglru":
                 cache.append(R.rglru_decode_init(cfg, batch, dt, dev))
@@ -293,8 +378,14 @@ class Model:
             c = min(cfg.window, max_len) if (kind == "local" and cfg.window) \
                 else max_len
             shape = (batch, c, cfg.n_kv_heads, cfg.head_dim)
-            cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                          "v": torch.zeros(shape, dtype=dt, device=dev)})
+            layer = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if enc_len is not None:
+                xshape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+                layer.update(xk=torch.zeros(xshape, dtype=dt, device=dev),
+                             xv=torch.zeros(xshape, dtype=dt, device=dev),
+                             enc_len=enc_len)
+            cache.append(layer)
         return cache
 
     # -------------------------------------------------------------- decode
@@ -304,15 +395,38 @@ class Model:
         (logits (B, V), cache), the cache updated in place."""
         h = L.embed_tokens(params.embed, tokens)
         pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
+        positions = self.decode_positions(pos, h.shape[0])
         for p, c, kind in zip(params.blocks, cache, self.kinds):
-            h = _block_apply_decode(p, self.cfg, kind, h, c, pos)
+            h = _block_apply_decode(p, self.cfg, kind, h, c, pos, positions)
         return self._logits(params, h)[:, 0], cache
+
+    def decode_positions(self, pos: torch.Tensor, batch: int
+                         ) -> Optional[torch.Tensor]:
+        """RoPE positions of one decode step at absolute ``pos`` (0-d or
+        (B,)): M-RoPE's (3, B, 1), all three components ``pos``; None
+        (the layers use ``pos``) otherwise."""
+        if not self.cfg.mrope:
+            return None
+        return pos.expand(batch)[None, :, None].expand(3, batch, 1)
+
+    def encode_for_decode(self, params: Params,
+                          batch: Dict[str, torch.Tensor], cache: Cache
+                          ) -> Cache:
+        """Whisper: run the encoder over ``batch["enc_frames"]`` and write
+        every layer's cross-attention keys and values into ``cache`` in
+        place; ``enc_len`` becomes the full encoder length.  Returns the
+        cache."""
+        cfg = self.cfg
+        enc = self._encode(params, batch)
+        b, t = enc.shape[:2]
+        for p, c in zip(params.blocks, cache):
+            c["xk"].copy_((enc @ p["xattn"]["wk"]).reshape(
+                b, t, cfg.n_kv_heads, cfg.head_dim))
+            c["xv"].copy_((enc @ p["xattn"]["wv"]).reshape(
+                b, t, cfg.n_kv_heads, cfg.head_dim))
+        cache[0]["enc_len"].fill_(t)
+        return cache
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"build_model: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, \"Modules to port\": encdec and vlm come in a "
-            f"later slice); dense, moe, ssm and hybrid are")
     return Model(cfg)

@@ -23,6 +23,10 @@ class ServeState:
 
 
 class ServeEngine:
+    """``prefill`` takes the whole batch of ``prefill_batch_specs`` (tokens,
+    and encdec's ``enc_frames``/``enc_len`` or vlm's ``img_embeds``/
+    ``positions``) to the model."""
+
     def __init__(self, model: Model, params: Params, max_len: int):
         self.model = model
         self.params = params
@@ -33,8 +37,10 @@ class ServeEngine:
         logits, cache = self.model.prefill(self.params, batch,
                                            max_len=self.max_len)
         first = torch.argmax(logits, dim=-1)[:, None]
-        return ServeState(cache=cache, last_tokens=first,
-                          pos=batch["tokens"].shape[1])
+        prompt_len = batch["tokens"].shape[1]
+        if self.model.cfg.family == "vlm":       # the image tokens come first
+            prompt_len += batch["img_embeds"].shape[1]
+        return ServeState(cache=cache, last_tokens=first, pos=prompt_len)
 
     @torch.inference_mode()
     def step(self, state: ServeState) -> Tuple[torch.Tensor, ServeState]:

@@ -533,6 +533,129 @@ def test_serving_path_launches_k4_per_layer(cuda):
     assert torch.equal(toks.cpu(), ctoks)
 
 
+# ----------------------------------------------- K4 with kv_len (encdec)
+FA_KV_CASES = [  # B, Sq, Sk, H, KV, D, causal, kv_len, dtype
+    # whisper's cross-attention: ragged within and across a 64-key tile,
+    # one key, and kv_len = Sk
+    (4, 224, 1500, 6, 6, 64, False, (1500, 1200, 700, 1), torch.bfloat16),
+    (4, 130, 300, 4, 2, 128, False, (300, 64, 65, 63), torch.bfloat16),
+    (3, 70, 200, 4, 4, 64, False, (200, 130, 5), torch.float32),
+    (2, 65, 129, 2, 1, 128, False, (129, 100), torch.float32),
+    (3, 300, 300, 4, 2, 128, True, (300, 190, 64), torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FA_KV_CASES)
+def test_flash_attention_kernel_kv_len_vs_plain(cuda, case):
+    b, sq, sk, h, kv, d, causal, lens, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, h, d), device=cuda, generator=g).to(dtype)
+    k = torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
+    v = torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
+    kv_len = torch.tensor(lens, device=cuda)
+    before = fa_ops.launches
+    got, lse = fa_ops.flash_attention_with_lse(q, k, v, causal=causal,
+                                               kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want, want_lse = flash_attention_ref(q, k, v, causal=causal,
+                                         kv_len=kv_len, return_lse=True)
+    atol, row_tol = (0.06, 0.1) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert row_error(got, want) <= row_tol
+    assert (lse - want_lse).abs().max().item() <= LSE_ATOL
+    # the length matters: the same call without it is far off
+    full = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert row_error(full, want) > 0.3
+
+
+def test_flash_attention_kernel_whisper_encoder_with_zero_pad(cuda):
+    """whisper-tiny's encoder shape (B 4, 1,500 frames, 6 heads of 64) as
+    ``models/attention.bidirectional`` calls K4: 36 zero keys appended up
+    to 1,536, which enter the softmax as the reference's do."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((4, 1500, 6, 64), device=cuda, generator=g
+                           ).to(torch.bfloat16) for _ in range(3))
+    got = A.bidirectional(q, k, v, block=A.ENCODER_BLOCK)
+    pad = torch.zeros((4, 36, 6, 64), dtype=torch.bfloat16, device=cuda)
+    want = flash_attention_ref(q, torch.cat([k, pad], 1),
+                               torch.cat([v, pad], 1), causal=False)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 0.06
+    assert row_error(got, want) <= 0.1
+
+
+def test_flash_attention_kv_len_checks_and_k4b_raises(cuda):
+    q = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((2, 16, 1, 64), dtype=torch.bfloat16, device=cuda)
+    before = fa_ops.launches
+    for bad in ((0, 16), (17, 1)):
+        with pytest.raises(ValueError, match="kv_len"):
+            fa_ops.flash_attention(q, k, k, causal=False,
+                                   kv_len=torch.tensor(bad, device=cuda))
+    with pytest.raises(ValueError, match="kv_len"):
+        fa_ops.flash_attention(q, k, k, kv_len=torch.tensor([3, 3]))
+    assert fa_ops.launches == before
+    kv_len = torch.tensor([16, 5], device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa_ops.flash_attention_bwd(q, k, k, q, q, causal=False,
+                                   kv_len=kv_len)
+    qg = q.clone().requires_grad_(True)
+    out = fa_ops.flash_attention(qg, k, k, causal=False, kv_len=kv_len)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
+def test_encdec_and_vlm_serve_on_the_card_equals_the_cpu(cuda, arch):
+    """2 layers at the full width of ``arch`` in float32 (whisper: 2
+    encoder and 2 decoder layers at enc_seq 1,500, so the zero pad is
+    live, with ragged enc_len; qwen2-vl: M-RoPE components that differ),
+    the same weights on the card and the CPU: prefill and decode logits
+    within 1e-3 (float32 sums in other orders), tokens equal, K4 three
+    times a decoder layer (encdec) or once (vlm) in prefill and never in
+    decode."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    over = dict(n_layers=2, dtype="float32")
+    if arch == "whisper-tiny":
+        over["enc_layers"] = 2
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    nb = shapes.prefill_batch_specs(cfg, 64, 4,
+                                    rng=np.random.default_rng(1))
+    if arch == "whisper-tiny":
+        nb["enc_len"] = np.array([1500, 1200, 700, 1], np.int32)
+        per_prefill = 3 * cfg.n_layers
+    else:
+        i = np.arange(64)
+        nb["positions"] = np.stack([np.broadcast_to(i, (4, 64)),
+                                    np.broadcast_to(i // 8, (4, 64)),
+                                    np.broadcast_to(i % 8, (4, 64))]
+                                   ).astype(np.int32)
+        per_prefill = cfg.n_layers
+    out = {}
+    for dev, p in ((cuda, params), (torch.device("cpu"), cpu_params)):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+        eng = ServeEngine(model, p, 64 + 16)
+        before = fa_ops.launches
+        st = eng.prefill(batch)
+        logits, _ = model.prefill(p, batch, 64 + 16)
+        n_pre = fa_ops.launches - before
+        toks, _ = eng.generate(st, 6)
+        out[dev.type] = (logits.cpu(), toks.cpu(), n_pre,
+                         fa_ops.launches - before - n_pre)
+    assert out["cuda"][2:] == (2 * per_prefill, 0)
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-3
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
 # ------------------------------------------------------------ K4b (bwd)
 # K4b against its plain version: dq, dk, dv each within a max abs error of
 # K4B_REL times the largest |value| and a row error (rows' RMS floored at

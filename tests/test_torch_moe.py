@@ -37,11 +37,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import moe as jM  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.configs import shapes as tshapes  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models import moe as tM  # noqa: E402
-from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.train import tree as T  # noqa: E402
 from test_torch_models import _cfgs, _f32, _model_pair, serve_vs_jax  # noqa: E402,E501
 
@@ -209,17 +207,6 @@ def loss_vs_jax(arch, remat):
                                    err_msg=name)
     assert max(float(np.abs(w).max()) for w in want) > 1e-2
     return met
-
-
-@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
-def test_encdec_and_vlm_still_raise(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="Modules to port"):
-        tbuild(cfg)
-    with pytest.raises(NotImplementedError, match="Modules to port"):
-        tshapes.prefill_batch_specs(cfg, 8, 1)
-    with pytest.raises(NotImplementedError, match="Modules to port"):
-        convert.port_layout(cfg, {})
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-780m",
