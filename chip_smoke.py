@@ -137,6 +137,30 @@ and nothing of the JAX package ``repro``.  Phases:
      time and the caching allocator's device allocations, frees and
      retries.  Last, train steps under remat "dots" (the config's) and
      "none" in turns, host issue time and step time;
+  5g. training the families that fit one card at their published widths
+     through ``train/trainer.Trainer`` on ``shapes.train_batch_specs``
+     batches (whisper-tiny: 448 decoder tokens beside 1,500 frames;
+     qwen2-vl-2b: 1,024 image and 1,024 text positions; mamba2-780m:
+     2,048 tokens), batch 4, bf16, remat "dots", 6 steps on one fixed
+     batch: the loss must fall, K4 must launch 20 / 56 / 0 times a step
+     and K4b 12 / 28 / 0 (see TRAIN_FAMILIES); prints ms a step, tokens/s
+     and peak device memory (phase 7 profiles one step of each, last of
+     its profiles).  K4b on the
+     step's own inputs of whisper's cross layer 0 (also at RAGGED_ENC_LEN,
+     where planted fault 4, ``kv_len`` ignored in the dK/dV walk, must
+     fail), its encoder layer 0 (1,500 queries, 1,536 keys) and
+     qwen2-vl's layer 0 agrees with its plain version, with exact zeros
+     in the dK and dV rows past ``kv_len``, and the planted faults fail.
+     Then whisper (ragged ``enc_len``) and qwen2-vl (M-RoPE components
+     apart) in float32 at 2 layers: the loss and every gradient on the
+     card against the CPU (FAMILY_LOSS_REL, FAMILY_GRAD_REL);
+  5h. (run last, after phase 7) ``train/manual_dp.build``'s
+     step (the int8 error-feedback gradient mean of
+     ``parallel/compression.py``) at gemma3-1b's full width on a
+     one-device NCCL group, phase 5d's batch shape, 4 steps: the loss must
+     fall, and on one step the int8 codes read back give the mean and
+     err' = g + err - mean bit for bit for every leaf; ms a step in turns
+     with the plain ``Trainer`` step;
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
@@ -166,7 +190,9 @@ and nothing of the JAX package ``repro``.  Phases:
      phase 5e's two layers (``family_shapes``, with their launches) and on
      phase 5f's calls (``modal_shapes``: whisper's encoder, its cross
      layer at the path's and the ragged enc_len, SDPA with a boolean mask
-     there, and qwen2-vl's layer 0);
+     there, and qwen2-vl's layer 0); K4b the same way on phase 5g's held
+     calls (``train_shapes``, with its launches on the three train
+     paths);
      K1, K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
@@ -280,12 +306,26 @@ ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 # a lower floor would count the rounding noise of dQ's row 0 (~1e-5 of the
 # tensor's RMS) as a fault.  A sound bfloat16 kernel
 # differs by the rounding of its outputs (2**-8 of a value of up to ~4 RMS),
-# by rounding P and dS to bfloat16 before their products (as the forward
-# rounds P; the row limit is K4's, for the same reason) and by float32 sums
-# in another order: a few hundredths.  A key tile dropped from the dK/dV
+# by holding P and dS in its products as bfloat16 pairs (about 16 bits; one
+# bfloat16, as PR 13's kernel held them, cost up to 0.2 of a row's RMS on
+# whisper-tiny's cross layer in training, whose dS cancels over the keys)
+# and by float32 sums in another order: a few hundredths.  A key tile dropped from the dK/dV
 # loop leaves whole rows at 0 (row error 1 or more), and Delta left out
-# moves every dS.
+# moves every dS.  For bfloat16 the plain version runs in float64: on
+# whisper-tiny's cross layer in training the float32 plain version is
+# itself 0.097 of a row's RMS floor off the exact gradients, at the dK row
+# of a batch row with one live key, which is 0 in exact arithmetic (and in
+# the kernel, whose Delta is the same tensor-core sum as dP).
 K4B_REL = {"bfloat16": 2e-2, "float32": 1e-5}
+# K4b's planted faults, as ``ops.flash_attention_bwd_planted`` takes them
+K4B_FAULTS = {
+    "tile 1": (1, 1, "key tile 1 dropped from the dK/dV loop"),
+    "last tile": (1, -1, "the last key tile dropped from the dK/dV loop"),
+    "Delta": (2, 0, "Delta left out of dS"),
+    "lse": (3, 0, "each row's lse read from the next row"),
+    "kv_len": (4, 0, "kv_len ignored in the dK/dV walk"),
+}
+K4B_FAULTS_NO_KV_LEN = ("tile 1", "last tile", "Delta", "lse")
 K4B_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 K4B_ROW_FLOOR = {"bfloat16": 0.05, "float32": 1.0}
 # Phase 5e.  The moe, ssm and hybrid families served at their published
@@ -325,6 +365,46 @@ MODAL_FAMILIES = (  # arch, prompt, {held call: its index in the prefill}
 # float32 check runs with them: every key live, some keys cut in and past a
 # 64-key tile, one key
 RAGGED_ENC_LEN = (1500, 1200, 700, 1)
+# Phase 5g.  The families that fit one card trained at their published
+# widths through train/trainer.Trainer (mesh=None), not launch/train.py
+# (both launchers feed only tokens and targets, ROADMAP.md §3), on
+# batches from shapes.train_batch_specs (as the reference's dry-run builds
+# them): batch TRAIN_BATCH, bf16, weights from seed 0, each config's own
+# remat ("dots"), AdamW at the launcher's default lr (3e-3),
+# TRAIN_FAMILY_STEPS steps on one fixed batch, which is memorised, so the
+# loss falls.  whisper-tiny trains on 448 decoder tokens (its text
+# context) beside 1,500 encoder frames; qwen2-vl-2b on 1,024 image and
+# 1,024 text positions.  K4 runs once per attention call in the forward
+# and again in the recompute of each checkpointed block, K4b once per
+# call.  whisper calls attention 12 times a forward (4 encoder layers, 4
+# decoder self-attentions, 4 cross-attentions), but its encoder's blocks
+# are not checkpointed (the reference's _encode runs outside its remat),
+# so K4 runs 12 + 8 = 20 times a step, not 24; qwen2-vl 28 + 28; mamba2
+# has no attention.
+# K4b is held on the named calls' own inputs with the planted faults given.
+# The lse fault (each row's lse read from the next row) is left out on
+# whisper's layers: with its stub frames at this initialisation their
+# scores are flat, and consecutive rows' lse can be equal to the last bit
+# (the cross layer's were: the fault changed no output).
+TRAIN_FAMILIES = (  # arch, sequence, K4 a step, K4b a step, {held: faults}
+    ("whisper-tiny", 448, 20, 12,
+     {"cross layer 0": ("tile 1", "last tile", "Delta"),
+      "encoder layer 0": ("tile 1", "last tile", "Delta")}),
+    ("qwen2-vl-2b", 2048, 56, 28, {"layer 0": K4B_FAULTS_NO_KV_LEN}),
+    ("mamba2-780m", 2048, 0, 0, {}),
+)
+TRAIN_FAMILY_STEPS = 6
+# the float32 check at 2 layers and full width (whisper with
+# RAGGED_ENC_LEN, qwen2-vl with M-RoPE components apart): loss within
+# FAMILY_LOSS_REL relative, every gradient within FAMILY_GRAD_REL of its
+# leaf's largest |value| (float32 sums in other orders: cuBLAS against the
+# CPU's GEMMs, K4's and K4b's float32 kernels against the plain softmax)
+FAMILY_LOSS_REL = 1e-5
+FAMILY_GRAD_REL = 1e-4
+# Phase 5h.  train/manual_dp.build's step (the int8 error-feedback mean)
+# on a one-device NCCL group at phase 5d's width and batch: MANUAL_DP_STEPS
+# steps, then steps in turns with phase 5d's plain Trainer step
+MANUAL_DP_STEPS = 4
 
 
 def log(*a):
@@ -1798,48 +1878,62 @@ def k4b_errors(got, want):
     return rel, row, rel <= K4B_REL[dt] and row <= K4B_ROW_TOL[dt]
 
 
-def k4b_check(tag, q, k, v, o, do, causal, window, faults=False, lse=None):
-    """K4b against its plain version on the same card tensors, from the
-    forward's ``lse`` (the wrapper has K4 write it when it is None); with
-    ``faults``, the kernel with each planted fault must fail the check.
-    Returns the largest max abs error of dq, dk, dv."""
+def plain_bwd_exact(q, k, v, o, do, **kw):
+    """K4b's plain version on (q, k, v, o, dO): for bfloat16 inputs computed
+    in float64 and rounded to bfloat16 (the exact gradients of those
+    inputs, as near as bfloat16 holds them), else in the inputs' dtype."""
     import torch
-    from repro_torch.kernels.flash_attention import ops, ref
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                  window=window, lse=lse)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                       window=window)
+    from repro_torch.kernels.flash_attention import ref
+    if q.dtype != torch.bfloat16:
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    return tuple(g.to(q.dtype) for g in ref.flash_attention_bwd_ref(
+        *(t.double() for t in (q, k, v, o, do)), **kw))
+
+
+def k4b_check(tag, q, k, v, o, do, causal, window, faults=(), lse=None,
+              kv_len=None):
+    """K4b against its plain version on the same card tensors, from the
+    forward's ``lse`` (the wrapper has K4 write it when it is None), with
+    ``kv_len`` if given (the dK and dV rows past it must be exactly 0);
+    the kernel with each planted fault named in ``faults`` (keys of
+    K4B_FAULTS) must fail the check.  Returns the largest max abs error of
+    dq, dk, dv."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    # bfloat16 inputs: the plain version in float64, rounded to bfloat16
+    # as the kernel's outputs are (see K4B_REL)
+    want = plain_bwd_exact(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     rel, row, ok = k4b_errors(got, want)
     err = max((a.float() - w.float()).abs().max().item()
               for a, w in zip(got, want))
     dt = str(q.dtype).split(".")[-1]
+    lens = None if kv_len is None else kv_len.tolist()
     log(f"{tag} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal="
-        f"{causal} window={window}: max abs err {err:.3e} ({rel:.3e} of "
-        f"the largest value, limit {K4B_REL[dt]}), row error {row:.3e} "
-        f"(limit {K4B_ROW_TOL[dt]})")
+        f"{causal} window={window} kv_len={lens}: max abs err {err:.3e} "
+        f"({rel:.3e} of the largest value, limit {K4B_REL[dt]}), row error "
+        f"{row:.3e} (limit {K4B_ROW_TOL[dt]})")
     if not ok:
         raise AssertionError(f"K4b errors {rel}, {row} beyond the limits")
-    again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                    window=window, lse=lse)
+    for b, n in enumerate(lens or ()):
+        if any(g[b, n:].count_nonzero().item() for g in got[1:]):
+            raise AssertionError(f"K4b: dk or dv rows of batch {b} past "
+                                 f"kv_len {n} are not 0")
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("K4b is not deterministic")
-    if faults:
-        for fault, tile, name in (
-                (1, 1, "key tile 1 dropped from the dK/dV loop"),
-                (1, -1, "the last key tile dropped from the dK/dV loop"),
-                (2, 0, "Delta left out of dS"),
-                (3, 0, "each row's lse read from the next row")):
-            bad = ops.flash_attention_bwd_planted(
-                q, k, v, o, do, causal=causal, window=window, fault=fault,
-                tile=tile, lse=lse)
-            rel, row, ok = k4b_errors(bad, want)
-            log(f"{tag} planted fault ({name}): {rel:.3e} of the largest "
-                f"value, row error {row:.3e}: "
-                f"{'PASSES' if ok else 'fails'} the check")
-            if ok:
-                raise AssertionError(f"K4b check passes a planted fault: "
-                                     f"{name}")
+    for fault, tile, name in (K4B_FAULTS[f] for f in faults):
+        bad = ops.flash_attention_bwd_planted(
+            q, k, v, o, do, fault=fault, tile=tile, lse=lse, **kw)
+        rel, row, ok = k4b_errors(bad, want)
+        log(f"{tag} planted fault ({name}): {rel:.3e} of the largest "
+            f"value, row error {row:.3e}: "
+            f"{'PASSES' if ok else 'fails'} the check")
+        if ok:
+            raise AssertionError(f"K4b check passes a planted fault: "
+                                 f"{name}")
     return err
 
 
@@ -1965,7 +2059,8 @@ def phase_train(dev):
                                     window=kw["window"])
             k4_planted_faults(tag, q, k, v, kw["window"], want_o)
             errs.append(k4b_check(f"[5d] K4b, a {kind} layer's own "
-                                  f"inputs:", q, k, v, o, do, faults=True,
+                                  f"inputs:", q, k, v, o, do,
+                                  faults=K4B_FAULTS_NO_KV_LEN,
                                   **kw))
     bf, f32 = torch.bfloat16, torch.float32
     for i, (b, s, h, kv, d, dt, w) in enumerate((
@@ -1975,7 +2070,7 @@ def phase_train(dev):
         do = k4_inputs(dev, b, s, s, h, kv, d, dt, seed=50 + i)[0]
         o, lse = k4.flash_attention_with_lse(q, k, v, causal=True, window=w)
         k4b_check("[5d] K4b", q, k, v, o, do, causal=True, window=w,
-                  faults=dt == f32, lse=lse)
+                  faults=K4B_FAULTS_NO_KV_LEN if dt == f32 else (), lse=lse)
     train_restarts(dev)
     runs = train_remat_steps(dev)
     return captured, launches, max(errs), runs["dots"]
@@ -2105,6 +2200,342 @@ def train_restarts(dev):
                                  f"{steps}")
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def family_k4b_call(kw):
+    """The name of a K4b call of phase 5g's models by its keywords: the
+    backward runs the layers last to first, so the last call of a kind is
+    layer 0's.  With kv_len a cross-attention, not causal an encoder
+    layer, causal a decoder or vlm layer."""
+    if kw.get("kv_len") is not None:
+        return "cross layer 0"
+    return "layer 0" if kw["causal"] else "encoder layer 0"
+
+
+def train_family(dev, arch, seq, k4_step, k4b_step, held):
+    """Phase 5g for one arch: train at full width, check the losses and
+    launches, hold K4b on the calls named in ``held``
+    ({name: planted faults}) on their own inputs (whisper's cross layer
+    also at RAGGED_ENC_LEN, with the kv_len fault).  Returns (launches
+    (K4, K4b), [(call name, q, k, v, o, do, kw, K4b max abs error)])."""
+    import itertools
+    import math
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    cfg = configs.get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ost = opt.init(params.tree())
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             shapes.train_batch_specs(cfg, seq, TRAIN_BATCH,
+                                      rng=np.random.default_rng(0)).items()}
+    n_params = sum(p.numel() for p in params.parameters())
+    tr = Trainer(model, opt.OptConfig(lr=3e-3, warmup_steps=1,
+                                      total_steps=TRAIN_FAMILY_STEPS),
+                 TrainerConfig(steps=TRAIN_FAMILY_STEPS, log_every=1))
+    k4.launches = k4.bwd_launches = 0
+    t0 = time.perf_counter()
+    params, ost, hist = tr.fit(params, ost, itertools.repeat(batch),
+                               resume=False)
+    wall = time.perf_counter() - t0
+    launches = (k4.launches, k4.bwd_launches)
+    losses = [h["loss"] for h in hist]
+    secs = [h["sec_per_step"] for h in hist]
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * seq
+    warm = statistics.median(secs[1:])
+    log(f"[5g] {arch} ({cfg.family}) at full width: {cfg.n_layers} layers"
+        f"{' + %d encoder layers' % cfg.enc_layers if cfg.family == 'encdec' else ''}"
+        f", d_model {cfg.d_model}, {n_params} parameters in {cfg.dtype}, "
+        f"remat {cfg.remat}; batch {TRAIN_BATCH} x {seq} positions "
+        f"{ {k: tuple(v.shape) for k, v in batch.items()} }; "
+        f"{TRAIN_FAMILY_STEPS} steps in {wall:.2f} s: losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[5g] {arch} step (host clock, synchronized) "
+        f"{[round(x * 1e3, 3) for x in secs]} ms; median after the first "
+        f"{warm * 1e3:.3f} ms, {tokens / warm:.0f} tokens/s; peak device "
+        f"memory {peak / 1e9:.2f} GB ({(peak - held_before) / 1e9:.2f} GB "
+        f"above what earlier phases hold); K4 {launches[0]} (= "
+        f"{TRAIN_FAMILY_STEPS} x {k4_step}), K4b {launches[1]} (= "
+        f"{TRAIN_FAMILY_STEPS} x {k4b_step})")
+    if len(losses) != TRAIN_FAMILY_STEPS or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: losses {losses} do not fall")
+    if launches != (TRAIN_FAMILY_STEPS * k4_step,
+                    TRAIN_FAMILY_STEPS * k4b_step):
+        raise AssertionError(f"{arch}: K4, K4b launches {launches}")
+    step = tr._step_fn
+    captured, out = {}, []
+    if held:
+        plain_bwd = k4.flash_attention_bwd
+
+        def recording(q, k, v, o, do, **kw):    # the layers' own K4b calls
+            captured[family_k4b_call(kw)] = (q, k, v, o, do, kw)
+            return plain_bwd(q, k, v, o, do, **kw)
+        k4.flash_attention_bwd = recording
+        try:
+            step(params, ost, batch)
+        finally:
+            k4.flash_attention_bwd = plain_bwd
+    del tr, step, params, ost, batch, model
+    for name, faults in held.items():
+        q, k, v, o, do, kw = captured[name]
+        tag = f"[5g] K4b {arch} {name}, the step's own inputs:"
+        err = k4b_check(tag, q, k, v, o, do, faults=faults, **kw)
+        out.append((name, q, k, v, o, do, kw, err))
+        if kw.get("kv_len") is not None:
+            # the same layer's q/k/v/dO with ragged encoder lengths, its
+            # output and lse from K4 at those lengths
+            kv_len = torch.tensor(RAGGED_ENC_LEN, dtype=torch.int32,
+                                  device=dev)
+            o, lse = k4.flash_attention_with_lse(q, k, v, causal=False,
+                                                 kv_len=kv_len)
+            ragged = dict(kw, lse=lse, kv_len=kv_len)
+            tag = f"[5g] K4b {arch} {name}, ragged kv_len:"
+            err = k4b_check(tag, q, k, v, o, do,
+                            faults=faults + ("kv_len",), **ragged)
+            out.append((f"{name}, ragged kv_len", q, k, v, o, do, ragged,
+                        err))
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def profile_train_family(dev, arch, seq):
+    """Phase 7 for one of phase 5g's archs: its full-width model drawn
+    again, two train steps, then one under the profiler.  Last of the
+    profiled phases: after the profiler had traced mamba2-780m's step
+    (30,000 kernels) it saw no device kernel in this process."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = configs.get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ost = opt.init(params.tree())
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             shapes.train_batch_specs(cfg, seq, TRAIN_BATCH,
+                                      rng=np.random.default_rng(0)).items()}
+    step = Trainer(model, opt.OptConfig(lr=3e-3, warmup_steps=1,
+                                        total_steps=TRAIN_FAMILY_STEPS),
+                   TrainerConfig()).build_step()
+    for _ in range(2):
+        step(params, ost, batch)
+    n_k, busy, wall, names, top = profile_step(
+        lambda: step(params, ost, batch))
+    log(f"[7] profiled {arch} train step (batch {TRAIN_BATCH} x {seq}): "
+        f"{n_k} device kernels, device busy {busy:.1f} us of {wall:.1f} us "
+        f"wall (idle share {1 - busy / wall:.3f}, profiler on); commonest "
+        f"{[(n[:60], c) for n, c in names]}; most device time "
+        f"{[(n[:60], round(us, 1)) for n, us in top]}")
+    del model, params, ost, batch, step
+    torch.cuda.empty_cache()
+
+
+def train_family_card_vs_cpu(dev, arch):
+    """Phase 5g's float32 check of ``arch`` at full width and 2 layers
+    (whisper: 2 encoder and 2 decoder layers over 1,500 frames with
+    RAGGED_ENC_LEN; qwen2-vl: M-RoPE components apart): ``loss_fn`` and
+    every gradient on the card (K4 and K4b's float32 kernels) and on the
+    CPU from the same weights and batch.  Raises beyond FAMILY_LOSS_REL or
+    FAMILY_GRAD_REL."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.train import tree as T
+    over = dict(n_layers=2, dtype="float32")
+    if configs.get_config(arch).family == "encdec":
+        over["enc_layers"] = 2
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    cpu_params = copy.deepcopy(params).to("cpu")
+    nb = shapes.train_batch_specs(cfg, FAMILY_CHECK_PROMPT, TRAIN_BATCH,
+                                  rng=np.random.default_rng(2))
+    if cfg.family == "encdec":
+        nb["enc_len"] = np.array(RAGGED_ENC_LEN, np.int32)
+    else:
+        i = np.arange(FAMILY_CHECK_PROMPT)
+        nb["positions"] = np.stack([
+            np.broadcast_to(c, (TRAIN_BATCH, FAMILY_CHECK_PROMPT))
+            for c in (i, i // 8, i % 8)]).astype(np.int32)
+    runs = {}
+    before = (k4.launches, k4.bwd_launches)
+    for where, p in (("card", params), ("cpu", cpu_params)):
+        d = dev if where == "card" else torch.device("cpu")
+        batch = {k: torch.as_tensor(v, device=d) for k, v in nb.items()}
+        leaves = T.leaves(p.tree())
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = model.loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        runs[where] = (loss.item(), [g.cpu() for g in grads])
+    k4_calls = (k4.launches - before[0], k4.bwd_launches - before[1])
+    names = [n for n, _ in T.flatten_with_names(params.tree())]
+    loss_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    worst, where = 0.0, None
+    for name, a, b in zip(names, runs["card"][1], runs["cpu"][1]):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    log(f"[5g] {arch} float32 at full width, 2 layers "
+        f"({'+2 encoder layers, enc_len %s' % (RAGGED_ENC_LEN,) if cfg.family == 'encdec' else 'M-RoPE components apart'}"
+        f"), batch {TRAIN_BATCH} x {FAMILY_CHECK_PROMPT}, card against CPU: "
+        f"loss {runs['cpu'][0]:.6f}, relative error {loss_rel:.3e} (limit "
+        f"{FAMILY_LOSS_REL}); {len(names)} gradients, the worst "
+        f"{worst:.3e} of its leaf's largest value at {where} (limit "
+        f"{FAMILY_GRAD_REL}); K4, K4b launched {k4_calls} on the card")
+    if not (loss_rel <= FAMILY_LOSS_REL and worst <= FAMILY_GRAD_REL):
+        raise AssertionError(f"{arch}: float32 card against CPU: loss "
+                             f"{loss_rel}, gradient {worst} at {where}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
+def phase_train_families(dev):
+    """Phase 5g.  Returns {arch: (K4, K4b) launches} and [(arch, call
+    name, q, k, v, o, do, kw, K4b error)] for phase 6."""
+    launches, captured = {}, []
+    for arch, seq, k4_step, k4b_step, held in TRAIN_FAMILIES:
+        launches[arch], calls = train_family(dev, arch, seq, k4_step,
+                                             k4b_step, held)
+        captured += [(arch,) + c for c in calls]
+        if held:
+            train_family_card_vs_cpu(dev, arch)
+    return launches, captured
+
+
+def phase_manual_dp(dev):
+    """Phase 5h: ``manual_dp.build``'s step at gemma3-1b's full width on a
+    one-device NCCL group (world size 1, an in-process store), phase 5d's
+    batch shape: the loss falls over MANUAL_DP_STEPS steps; on one step,
+    for every leaf, the int8 codes read back (``quantize``) give the mean
+    (code x scale) and the error-feedback identity err' = g + err - mean
+    holds bit for bit on the card; then ms a step in turns with phase
+    5d's plain ``Trainer`` step."""
+    import math
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import configs
+    from repro_torch.configs import shapes
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import compression as comp
+    from repro_torch.train import manual_dp
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = configs.get_config(TRAIN_ARCH)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(1))
+        ost = opt.init(params.tree())
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 shapes.train_batch_specs(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                          rng=np.random.default_rng(1)
+                                          ).items()}
+        ocfg = opt.OptConfig(lr=3e-3, warmup_steps=1, total_steps=20)
+        step, places = manual_dp.build(model, mesh, ocfg, batch)
+        err = manual_dp.error_state_init(params.tree(), 1, device=dev)
+        seen, codes = {}, []
+        plain_pmean, plain_quantize = comp.compressed_pmean, comp.quantize
+
+        def quantize(g32, gmax, n):            # the codes, read back
+            out = plain_quantize(g32, gmax, n)
+            codes.append(out)
+            return out
+
+        def pmean(grads, errs, groups, scale_of=None):
+            # checked before the step writes the new error state over errs
+            comp.quantize = quantize
+            try:
+                means, new_err = plain_pmean(grads, errs, groups, scale_of)
+            finally:
+                comp.quantize = plain_quantize
+            bad = []
+            for i, (g, e, m, ne, (q, sc)) in enumerate(zip(
+                    grads, errs, means, new_err, codes)):
+                g32 = g.to(torch.float32) + e
+                if not (q.dtype == torch.int8
+                        and torch.equal(m, q.to(torch.float32) * sc)
+                        and torch.equal(ne, g32 - m)):
+                    bad.append(i)
+            seen.update(leaves=len(grads), codes=len(codes), bad=bad,
+                        elements=sum(g.numel() for g in grads))
+            codes.clear()
+            return means, new_err
+        losses, secs = [], []
+        for i in range(MANUAL_DP_STEPS):
+            if i == 1:        # a step whose error state is not zero
+                comp.compressed_pmean = pmean
+            try:
+                t0 = time.perf_counter()
+                params, ost, err, loss = step(params, ost, err, batch)
+                losses.append(loss.item())
+                secs.append(time.perf_counter() - t0)
+            finally:
+                comp.compressed_pmean = plain_pmean
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[5h] manual_dp.build on a one-device NCCL group (mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), {cfg.name} at "
+            f"full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+            f"{[round(x, 4) for x in losses]}; step 2's {seen['leaves']} "
+            f"leaves ({seen['elements']} elements, as many int8 bytes on "
+            f"the wire): codes x scale = mean and err' = g + err - mean "
+            f"bit for bit on {seen['leaves'] - len(seen['bad'])} of "
+            f"{seen['leaves']} leaves; error-state placements of "
+            f"['embed']['tok'] {places[2]['embed']['tok']}; peak device "
+            f"memory {peak / 1e9:.2f} GB")
+        if seen["codes"] != seen["leaves"] or seen["bad"]:
+            raise AssertionError(f"manual_dp: identity fails on leaves "
+                                 f"{seen['bad'][:8]} ({seen['codes']} "
+                                 f"codes)")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"manual_dp: losses {losses}")
+        plain = Trainer(model, ocfg, TrainerConfig()).build_step()
+        runs = {"manual_dp": lambda: step(params, ost, err, batch)[3],
+                "Trainer": lambda: plain(params, ost, batch)[2]["loss"]}
+        times = {r: [] for r in runs}
+        for r in ("manual_dp", "Trainer", "Trainer", "manual_dp") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[r]()
+            torch.cuda.synchronize()
+            times[r].append((time.perf_counter() - t0) * 1e3)
+        log(f"[5h] ms a step in turns (host clock, synchronized): "
+            + "; ".join(f"{r} median {statistics.median(t):.3f} "
+                        f"{[round(x, 3) for x in t]}"
+                        for r, t in times.items())
+            + f"; the first {MANUAL_DP_STEPS} manual_dp steps "
+            f"{[round(x * 1e3, 3) for x in secs]} ms")
+        del params, ost, err, batch, step, plain, runs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
 
 
 def match_batch_earlier(batch, tables):
@@ -2290,12 +2721,7 @@ def time_k4(tag, dev, q, k, v, kw, with_lse=False):
     sk = k.shape[1]
     w, causal, kv_len = kw["window"], kw["causal"], kw.get("kv_len")
     lens = [sk] * b if kv_len is None else kv_len.tolist()
-    i = torch.arange(sq)
-    lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
-    pairs = sum(int(((i.clamp(max=n - 1) if causal else
-                      torch.full_like(i, n - 1)) - lo + 1).clamp(min=0).sum())
-                for n in lens)
-    n_ops = 4 * d * pairs * h
+    n_ops = 4 * d * h * live_pairs(sq, lens, causal, w)
     nbytes = (2 * q.numel() + 2 * sum(lens) * k.shape[2] * d) \
         * q.element_size()
     bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
@@ -2346,8 +2772,82 @@ def time_k4(tag, dev, q, k, v, kw, with_lse=False):
                 library_ms=lib, lse_ms=ms_lse)
 
 
+def live_pairs(sq, lens, causal, window):
+    """The live (query, key) pairs of one head: over the batch rows' key
+    lengths ``lens``, query i sees keys [max(0, i - window + 1), min(i,
+    n - 1)] (causal) or [that, n - 1] (not)."""
+    import torch
+    i = torch.arange(sq)
+    lo = (i - window + 1).clamp(min=0) if window else torch.zeros_like(i)
+    return sum(int(((i.clamp(max=n - 1) if causal else
+                     torch.full_like(i, n - 1)) - lo + 1).clamp(min=0).sum())
+               for n in lens)
+
+
+def time_k4b(tag, dev, q, k, v, o, do, kw):
+    """K4b on (q, k, v, o, dO) at ``kw``'s mask (causal, window, kv_len,
+    lse): device time, the plain version's and SDPA's backward
+    (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with a
+    boolean mask for a window or kv_len; the yardstick) in the same call,
+    and the bound: 10 D operations per live (query, key) pair (S, dP, dV,
+    dQ, dK; the dQ kernel's recompute of S and dP adds 4 D, which the
+    bound does not count) over the bf16 peak, or q, o, dO and the live
+    rows of k and v read and dq, dk, dv written over the HBM rate.  Logs
+    and returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    w, causal, kv_len = kw["window"], kw["causal"], kw.get("kv_len")
+    lens = [sk] * b if kv_len is None else kv_len.tolist()
+    n_ops = 10 * d * h * live_pairs(sq, lens, causal, w)
+    nbytes = (4 * q.numel() + 2 * sum(lens) * kvh * d + 2 * k.numel()) \
+        * q.element_size()
+    bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    by = "operations" if n_ops / BF16_OPS_PER_S > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    ms, host = time_ms(lambda: k4.flash_attention_bwd(q, k, v, o, do, **kw))
+    plain_kw = {key: kw.get(key) for key in ("causal", "window", "kv_len")}
+    plain, _ = time_ms(lambda: k4ref.flash_attention_bwd_ref(
+        q, k, v, o, do, **plain_kw), runs=5, per_run=4)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    jj = torch.arange(sk, device=dev)[None, :]
+    if w:
+        ii = torch.arange(sq, device=dev)[:, None]
+        sdpa = dict(attn_mask=(jj <= ii) & (jj > ii - w), enable_gqa=True)
+    elif kv_len is not None:                   # (B, 1, 1, Sk), not causal
+        sdpa = dict(attn_mask=(jj < kv_len[:, None])[:, None, None],
+                    enable_gqa=True)
+    else:
+        sdpa = dict(is_causal=causal, enable_gqa=True)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+    dot = do.transpose(1, 2)
+    lib, _ = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+    lib_err = max((a.transpose(1, 2).float() - g.float()).abs().max()
+                  .item() for a, g in zip(lib_grads, k4.flash_attention_bwd(
+                      q, k, v, o, do, **kw)))
+    mask = f"window {w}" if w else ("causal" if causal else "not causal")
+    if kv_len is not None:
+        mask += f", kv_len {lens}"
+    log(f"{tag} ({mask}) q{tuple(q.shape)} k{tuple(k.shape)}: device "
+        f"{ms * 1e3:.3f} us (issued in {host * 1e3:.2f} us), plain device "
+        f"{plain * 1e3:.3f} us, SDPA backward {lib * 1e3:.3f} us (its "
+        f"gradients differ from K4b's by {lib_err:.3e}), bound "
+        f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
+        f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{bound / ms * 100:.2f} % of the bound)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib)
+
+
 def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
-                  captured_bwd, k4b_err, fam_captured, modal_captured):
+                  captured_bwd, k4b_err, fam_captured, modal_captured,
+                  family_captured):
     """Time the launch floor, K1-K4 and K4b at their paths' shapes.
     Returns the entries of the ``kernels`` line."""
     import numpy as np
@@ -2501,9 +3001,7 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
     # serving path; SDPA on the same tensors as the yardstick.  The entry's
     # main numbers are the global layer's; local_* are the local layer's;
     # family_shapes holds phase 5e's two shapes.
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
-    from repro_torch.kernels.flash_attention import ops as k4, ref as k4ref
+    from repro_torch.kernels.flash_attention import ops as k4
     k4_entry = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
@@ -2604,69 +3102,38 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
     out.append(k4_entry)
 
     # K4b on the training run's own inputs of a global and a local layer,
-    # from the lse their forward saved; SDPA's backward
-    # (torch.autograd.grad of scaled_dot_product_attention on the same
-    # tensors) as the yardstick.  Operations: 10 D per live (query, key)
-    # pair (S, dP, dV, dQ, dK; the dQ kernel's recompute of S and dP adds
-    # 4 D, which the bound does not count); bytes: q, k, v, o, dO read, dq,
-    # dk, dv written.
+    # from the lse their forward saved, and on phase 5g's held calls (its
+    # three train paths' shapes); SDPA's backward as the yardstick.
     k4b_entry = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/flash_attention/"
                "flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:94",
         launches=launches["train"]["flash_attention_bwd"],
-        max_abs_err=k4b_err)
+        max_abs_err=max([k4b_err] + [c[-1] for c in family_captured]))
     for kind in ("global", "local"):
         q, k, v, o, do, kw = captured_bwd[kind]
-        b, sq, h, d = q.shape
-        sk = k.shape[1]
-        w = kw["window"]
-        i = torch.arange(sq)
-        hi = i.clamp(max=sk - 1)
-        lo = (i - w + 1).clamp(min=0) if w else torch.zeros_like(i)
-        pairs = int((hi - lo + 1).clamp(min=0).sum())
-        n_ops = 10 * d * pairs * b * h
-        nbytes = 4 * (q.numel() + k.numel()) * q.element_size()
-        bound = max(n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        by = "operations" if n_ops / BF16_OPS_PER_S > \
-            nbytes / HBM_BYTES_PER_S else "bytes"
-        ms, host = time_ms(lambda: k4.flash_attention_bwd(q, k, v, o, do,
-                                                          **kw))
-        plain, _ = time_ms(lambda: k4ref.flash_attention_bwd_ref(
-            q, k, v, o, do, **kw), runs=5, per_run=4)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        if w:
-            ii = torch.arange(sq, device=dev)[:, None]
-            jj = torch.arange(sk, device=dev)[None, :]
-            sdpa = dict(attn_mask=(jj <= ii) & (jj > ii - w),
-                        enable_gqa=True)
+        t = time_k4b(f"[6] K4b {kind} layer", dev, q, k, v, o, do, kw)
+        if kw["window"]:
+            k4b_entry.update(local_ms=t["ms"], local_plain_ms=t["plain_ms"],
+                             local_bound_ms=t["bound_ms"],
+                             local_library_ms=t["library_ms"])
         else:
-            sdpa = dict(is_causal=True, enable_gqa=True)
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
-        dot = do.transpose(1, 2)
-        lib, _ = time_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True))
-        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                        retain_graph=True)
-        lib_err = max((a.transpose(1, 2).float() - g.float()).abs().max()
-                      .item() for a, g in zip(lib_grads, k4.flash_attention_bwd(
-                          q, k, v, o, do, **kw)))
-        log(f"[6] K4b {kind} layer ({'window %d' % w if w else 'causal'}) "
-            f"q{tuple(q.shape)} k{tuple(k.shape)}: device {ms * 1e3:.3f} us "
-            f"(issued in {host * 1e3:.2f} us), plain device "
-            f"{plain * 1e3:.3f} us, SDPA backward {lib * 1e3:.3f} us "
-            f"(its gradients differ from K4b's by {lib_err:.3e}), bound "
-            f"{bound * 1e3:.3f} us by {by} ({n_ops} ops, {nbytes} B; "
-            f"{n_ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
-            f"{bound / ms * 100:.2f} % of the bound)")
-        if w:
-            k4b_entry.update(local_ms=ms, local_plain_ms=plain,
-                             local_bound_ms=bound, local_library_ms=lib)
-        else:
-            k4b_entry.update(ms=ms, plain_ms=plain, bound_ms=bound,
-                             bound_by=by, library_ms=lib)
+            k4b_entry.update(**{key: t[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    k4b_entry["train_shapes"] = []
+    for arch, call, q, k, v, o, do, kw, err in family_captured:
+        t = time_k4b(f"[6] K4b {arch} {call}", dev, q, k, v, o, do, kw)
+        kv_len = kw.get("kv_len")
+        k4b_entry["train_shapes"].append(dict(
+            arch=arch, call=call, q=list(q.shape), k=list(k.shape),
+            causal=kw["causal"],
+            kv_len=None if kv_len is None else kv_len.tolist(),
+            launches=launches["train_families"][arch][1], max_abs_err=err,
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}))
+    k4b_entry["train_family_launches"] = {
+        arch: n[1] for arch, n in launches["train_families"].items()}
     # K4b's kernels one by one, under the profiler (after every timing)
     import re
     from torch.autograd import DeviceType
@@ -2771,10 +3238,16 @@ def main() -> int:
                              f"{steps} NIC steps, {node_ticks} node-ticks")
     # the training path, counted on its own
     captured_bwd, launches["train"], k4b_err, train_step = phase_train(dev)
+    # the families that fit one card, each arch's training counted on its
+    # own (train_family zeroes K4's and K4b's counts before its steps)
+    launches["train_families"], family_captured = phase_train_families(dev)
+    log(f"[5g] path launches (K4, K4b): {launches['train_families']} (= "
+        f"{TRAIN_FAMILY_STEPS} steps x "
+        f"{ {a: (f, b) for a, _, f, b, _ in TRAIN_FAMILIES} })")
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
                             empty, captured_bwd, k4b_err, fam_captured,
-                            modal_captured)
-    del captured_bwd, fam_captured, modal_captured
+                            modal_captured, family_captured)
+    del captured_bwd, fam_captured, modal_captured, family_captured
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the
     # complex stream's first batch, replayed), a prefill and a decode step
@@ -2812,6 +3285,10 @@ def main() -> int:
         profile_family(dev, arch, prompt_len)
     for arch, prompt_len, _ in MODAL_FAMILIES:
         profile_family(dev, arch, prompt_len)
+    for arch, seq, _, _, _ in TRAIN_FAMILIES:
+        profile_train_family(dev, arch, seq)
+    # last, after every profile
+    phase_manual_dp(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,24 @@
 // differentiates.  The port's forward runs on K4, so its gradient is this
 // kernel.  It computes the gradients of what flash_attention_ref computes
 // (scale 1/sqrt(D), absolute positions from 0, causal keeps j <= i, window
-// > 0 keeps j > i - window, a fully masked row gives 0) without storing the
-// scores: with P = exp(S - lse) recomputed tile by tile from the row
+// > 0 keeps j > i - window, an optional per-batch key length kv_len keeps
+// j < kv_len[b], a fully masked row gives 0) without storing the scores: with P = exp(S - lse) recomputed tile by tile from the row
 // log-sum-exp that K4's forward wrote (+inf for a row with no live key),
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta),  Delta_i = dO_i . O_i,
 //   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D).
 // Inputs q, o, dO (B, Sq, H, D) and k, v (B, Sk, KV, D), contiguous, and
 // lse float32 (B, H, Sq); query head h reads KV head h / (H / KV).
 // bfloat16 or float32, D 64, 128 or 256; every sum is float32.
+//
+// kv_len (null, or int32 (B,) with every value in [1, Sk], as K4 takes it:
+// whisper's cross-attention) cuts batch row b's keys to [0, kv_len[b]).  It
+// is a loop bound, as in K4's forward: the dQ kernel's key range ends at
+// min(Sk, kv_len[b]) and its ragged-end mask cuts there; a dK/dV block
+// whose key tile starts at or past kv_len[b] takes no step and writes zero
+// partial sums, and in the tile that straddles it P^T is 0 for the keys at
+// or past it, so their dK and dV rows come out exactly 0, as the plain
+// backward gives.  Delta and the ordered reduction do not change: the lse
+// that K4's forward wrote already excludes those keys.
 //
 // bfloat16 (the model's dtype), three kernels in stream order, each block
 // of the first two built as K4's forward is: one producer warpgroup that
@@ -24,16 +34,17 @@
 // keys.
 //  * dq_wgmma_kernel, a block per (query tile, head, batch), the longest
 //    causal walks first: Q and dO come in once, then K and V tiles stream
-//    through the ring.  While the first tiles load, the consumers read the
-//    rows' lse and compute their Delta from O and dO, and write both, lse
-//    in log2 units, into padded (B, H, Sq rounded up to 64) buffers for
-//    the dK/dV kernel (+inf and 0 past Sq, so that kernel needs no row
-//    mask).  Consumer 0 computes
+//    through the ring.  The consumers read the rows' lse and compute their
+//    Delta (the diagonal of O dO^T on the tensor cores, the same sum as
+//    dP's), and write both, lse in log2 units, into padded (B, H, Sq
+//    rounded up to 64) buffers for the dK/dV kernel (+inf and 0 past Sq,
+//    so that kernel needs no row mask).  Consumer 0 computes
 //    S = Q K^T and P = exp2(S scale log2(e) - lse log2(e)) and hands P to
 //    consumer 1 in float32 through shared memory (two named barriers);
-//    consumer 1 computes dP = dO V^T, dS = P (dP - Delta), rounds dS to
-//    bfloat16 in the accumulator's layout (wgmma's A-register layout) and
-//    adds dS K to dQ, K read as the MN-major (transposed) operand.  S and
+//    consumer 1 computes dP = dO V^T, dS = P (dP - Delta), splits dS into
+//    a bfloat16 pair hi + lo in the accumulator's layout (wgmma's
+//    A-register layout; see split_bf16) and adds hi K + lo K to dQ, K read
+//    as the MN-major (transposed) operand.  S and
 //    dP are m64n64 products with both operands in shared memory; dQ (64 x
 //    D float32, D / 2 registers a thread) stays in consumer 1's registers.
 //    Consumer 0 releases a stage once S is done and runs a tile ahead, so
@@ -45,7 +56,8 @@
 //    Consumer 0 computes S^T = K Q^T, forms P^T, hands it to consumer 1 in
 //    float32 through shared memory (two named barriers) and adds P^T dO
 //    to dV; consumer 1 computes dP^T = V dO^T, forms dS^T = P^T (dP^T -
-//    Delta) and adds dS^T Q to dK.  So each holds one 64 x D float32 sum
+//    Delta) and adds dS^T Q to dK, each operand in registers split into a
+//    bfloat16 pair as in the dQ kernel.  So each holds one 64 x D float32 sum
 //    (at D = 256 a thread holds 128 of them, with S^T or dP^T beside it),
 //    and all five products run on wgmma with dO and Q as MN-major
 //    operands, no transpose through shared memory.  A tile's steps are
@@ -62,6 +74,15 @@
 // ragged end of the keys are masked, on the accumulators, outside the
 // wgmma issue (ptxas serialises a wgmma under a branch).
 //
+// The register operands of the last three products (dS for dQ and dK, P^T
+// for dV) are each split into a bfloat16 pair hi + lo (split_bf16) and the
+// product runs twice: the sums then keep about 16 bits of each value where
+// one bfloat16 keeps 8.  On whisper-tiny's cross-attention in training,
+// whose dS cancels over the keys (an encoder output of small stub frames),
+// one bfloat16 cost up to 0.2 of a dQ row's RMS, as a plain version that
+// rounds dS so showed; split, the error is the float32 sums'.  The split
+// adds three of the seven m64 products a tile.
+//
 // float32 (tests and small configurations), on the CUDA cores: tiles of
 // 16 query rows by 32 keys (dq_kernel, dkv_kernel; a warp computes 2 rows x
 // 32 keys of S and dP, a thread one key and two rows), one block per key
@@ -72,8 +93,9 @@
 //
 // What bounds it on the H100: by the count, operations, 10 D per live
 // (query, key) pair (S, dP, dV, dK, dQ), against the bytes of q, k, v, o,
-// dO and the three gradients.  This design does 14 D: the dQ kernel
-// recomputes S and dP so that no kernel needs float32 atomics.  As
+// dO and the three gradients.  This design does 20 D: the dQ kernel
+// recomputes S and dP so that no kernel needs float32 atomics, and the
+// split operands run dQ, dK and dV twice.  As
 // measured at gemma3-1b's train shape (D 256), the streaming of tiles
 // into each SM: every 64 x 64 step brings in 64 KiB, and a build whose
 // consumers only wait for each stage and release it took two thirds of
@@ -86,7 +108,8 @@
 // variant that the checks hold to fail (repro_flash_attention_bwd_planted):
 // fault 1 drops one key tile from the dK/dV work (its dK, dV rows stay 0),
 // fault 2 leaves Delta out of dS, fault 3 reads each row's lse from the
-// next row.  The shipped library has none of them.
+// next row, fault 4 ignores kv_len in the dK/dV walk (the keys past it get
+// nonzero rows).  The shipped library has none of them.
 
 #include <climits>
 #include <cmath>
@@ -112,6 +135,7 @@ struct Args {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, Sq), natural log, from K4's forward
+  const int* kv_len; // null, or (B,) in [1, Sk]: row b's keys are [0, kv_len[b])
   void* dq;
   void* dk;
   void* dv;
@@ -142,6 +166,9 @@ __device__ __forceinline__ bool delta_dropped(const Args& a) {
 __device__ __forceinline__ int64_t lse_row(const Args& a, int64_t row) {
   return a.fault == 3 && row + 1 < a.sq ? row + 1 : row;
 }
+__device__ __forceinline__ bool kv_len_ignored(const Args& a) {
+  return a.fault == 4;
+}
 #else
 __device__ __forceinline__ bool tile_dropped(const Args&, int64_t, int64_t) {
   return false;
@@ -150,10 +177,24 @@ __device__ __forceinline__ bool delta_dropped(const Args&) { return false; }
 __device__ __forceinline__ int64_t lse_row(const Args&, int64_t row) {
   return row;
 }
+__device__ __forceinline__ bool kv_len_ignored(const Args&) { return false; }
 #endif
 
-__device__ __forceinline__ bool live(const Args& a, int64_t i, int64_t j) {
-  return i < a.sq && j < a.sk && (!a.causal || j <= i) &&
+// the live keys [0, n) of batch row bb: Sk, or kv_len[bb] when given
+__device__ __forceinline__ int64_t row_keys(const Args& a, int64_t bb) {
+  if (a.kv_len == nullptr) return a.sk;
+  const int64_t n = a.kv_len[bb];
+  return n < a.sk ? n : a.sk;
+}
+// the same bound as the dK/dV walk reads it
+__device__ __forceinline__ int64_t dkv_keys(const Args& a, int64_t bb) {
+  return kv_len_ignored(a) ? a.sk : row_keys(a, bb);
+}
+
+// query i sees key j; keys [0, keys) of the row's batch are live
+__device__ __forceinline__ bool live(const Args& a, int64_t i, int64_t j,
+                                     int64_t keys) {
+  return i < a.sq && j < keys && (!a.causal || j <= i) &&
          (a.window <= 0 || j > i - a.window);
 }
 
@@ -202,13 +243,15 @@ __device__ __forceinline__ void dots(const float* Qs, const float* dOs,
   }
 }
 
-// key tiles [lo, hi) that query rows [q0, q0 + BQ) can see
+// key tiles [lo, hi) that query rows [q0, q0 + BQ) can see, of keys
+// [0, keys)
 __device__ __forceinline__ void key_tiles(const Args& a, int64_t q0,
-                                          int64_t& lo, int64_t& hi) {
+                                          int64_t keys, int64_t& lo,
+                                          int64_t& hi) {
   int64_t kmin = a.window > 0 ? q0 - a.window + 1 : 0;
-  int64_t kmax = a.causal ? q0 + BQ : a.sk;        // exclusive
+  int64_t kmax = a.causal ? q0 + BQ : keys;        // exclusive
   if (kmin < 0) kmin = 0;
-  if (kmax > a.sk) kmax = a.sk;
+  if (kmax > keys) kmax = keys;
   lo = kmin / BK;
   hi = kmax > kmin ? (kmax + BK - 1) / BK : lo;
 }
@@ -262,8 +305,9 @@ dq_kernel(Args a) {
     }
   }
 
+  const int64_t keys = row_keys(a, bb);
   int64_t kt_lo, kt_hi;
-  key_tiles(a, q0, kt_lo, kt_hi);
+  key_tiles(a, q0, keys, kt_lo, kt_hi);
 
   // dQ[i][d] += sum_j dS[i][j] K[j][d]; a thread owns column d = tid % D
   // of rows [ib * RN, ib * RN + RN)
@@ -283,8 +327,9 @@ dq_kernel(Args a) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int ri = w + 8 * r;
-      float p = live(a, q0 + ri, j) ? __expf(s[r] * a.scale - lse_s[ri])
-                                    : 0.f;
+      float p = live(a, q0 + ri, j, keys)
+                    ? __expf(s[r] * a.scale - lse_s[ri])
+                    : 0.f;
       dSs[ri * BK + lane] = p * (dp[r] - dl_s[ri]);
     }
     __syncthreads();
@@ -339,13 +384,14 @@ dkv_kernel(Args a) {
   load_rows<D>(Ks, D + 1, k, k0, BK, a.sk, a.kv, kvh);
   load_rows<D>(Vs, D + 1, v, k0, BK, a.sk, a.kv, kvh);
 
-  // query tiles that can see keys [k0, k0 + BK)
+  // query tiles that can see keys [k0, k0 + BK); none past kv_len
+  const int64_t keys = dkv_keys(a, bb);
   int64_t qmin = a.causal ? k0 : 0;
   int64_t qmax = a.sq;                                   // exclusive
   if (a.window > 0 && k0 + BK - 1 + a.window < qmax)
     qmax = k0 + BK - 1 + a.window;
   int64_t qt_lo = qmin / BQ, qt_hi = qmax > qmin ? (qmax + BQ - 1) / BQ : 0;
-  if (tile_dropped(a, kt, gridDim.x)) qt_hi = 0;
+  if (tile_dropped(a, kt, gridDim.x) || k0 >= keys) qt_hi = 0;
 
   // a thread owns column d = tid % D of keys [jb * JN, jb * JN + JN)
   constexpr int JN = BK * D / THREADS;
@@ -374,8 +420,9 @@ dkv_kernel(Args a) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int ri = w + 8 * r;
-        float p = live(a, q0 + ri, j) ? __expf(s[r] * a.scale - lse_s[ri])
-                                      : 0.f;
+        float p = live(a, q0 + ri, j, keys)
+                      ? __expf(s[r] * a.scale - lse_s[ri])
+                      : 0.f;
         Ps[ri * BK + lane] = p;
         dSs[ri * BK + lane] = p * (dp[r] - dl_s[ri]);
       }
@@ -484,19 +531,42 @@ __device__ __forceinline__ void find_tile(const Args& a, int x, int n_kt,
   }
 }
 
-// sum of the products of 8 bfloat16 pairs
-__device__ __forceinline__ float dot8(uint4 x, uint4 y) {
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fa = __bfloat1622float2(a[i]), fb = __bfloat1622float2(b[i]);
-    s = fmaf(fa.x, fb.x, s);
-    s = fmaf(fa.y, fb.y, s);
-  }
-  return s;
+// the bfloat16 pair nearest (a, b), in hi, and the pair nearest what it
+// leaves over, in lo: a = hi.x + lo.x to about 16 significant bits, so a
+// product taken with hi and again with lo keeps that precision
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
 }
+
+#define KB_ACC8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (m64 x n64, f32) (+)= a . b, a (bf16) from registers, b (K-major) from
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64_kmajor(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : KB_ACC8(0), KB_ACC8(8), KB_ACC8(16), KB_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+#undef KB_ACC8
 
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -518,7 +588,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto kv_full = [&](int s) { return q_full + 8u * (1 + s); };
   auto kv_empty = [&](int s) { return q_full + 8u * (1 + S + s); };
 
-  const int sq = static_cast<int>(a.sq), sk = static_cast<int>(a.sk);
+  const int sq = static_cast<int>(a.sq);
   const int h = static_cast<int>(a.h);
   // block order: the last query tile of every (batch, head) first (under
   // the causal mask the longest walks); heads of one KV head are neighbours
@@ -528,8 +598,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bi = static_cast<int>(blockIdx.x) % bh / h;
   const int hi = static_cast<int>(blockIdx.x) % bh % h;
   const int kvh = hi / (h / static_cast<int>(a.kv));
+  // this batch row's keys [0, keys): kv_len ends the walk, as in K4's forward
+  const int keys = static_cast<int>(row_keys(a, bi));
   // the key tiles that hold a live key for some row of the tile
-  const int k_hi = a.causal ? min(sk, min(sq, q0 + T64)) : sk;
+  const int k_hi = a.causal ? min(keys, min(sq, q0 + T64)) : keys;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int kb0 = k_lo / T64;
   const int n_kt = k_hi > k_lo ? (k_hi + T64 - 1) / T64 - kb0 : 0;
@@ -581,10 +653,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // once dQ is, so consumer 0 runs a tile ahead: its S and softmax overlap
   // consumer 1's products.  Each thread's accumulator rows (element 4j +
   // e): ra for e < 2, else rb; key 8j + 2 tq4 + (e & 1) of the tile.  The
-  // rows' lse (consumer 0) and Delta (consumer 1) are each thread's own,
-  // read or computed while the first tiles load, and written by the quad's
-  // first thread into the dK/dV kernel's padded buffers (+inf and 0 past
-  // Sq, so that kernel needs no row mask).
+  // rows' lse (consumer 0, read while the first tiles load) and Delta
+  // (consumer 1, computed once Q and dO are in) are each thread's own, and
+  // written by the quad's first thread into the dK/dV kernel's padded
+  // buffers (+inf and 0 past Sq, so that kernel needs no row mask).
   const int ra = 16 * warp + g, rb = ra + 8;
   const int row_a = q0 + ra, row_b = q0 + rb;
   const float scale_log2 = a.scale * LOG2E;
@@ -616,13 +688,13 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(x);
       mbar_arrive(kv_empty(s));
       const int c0 = (kb0 + i) * T64;
-      if (c0 + T64 - 1 >= sk || (a.causal && c0 + T64 - 1 > q0) ||
+      if (c0 + T64 - 1 >= keys || (a.causal && c0 + T64 - 1 > q0) ||
           (a.window > 0 && c0 <= q0 + T64 - 1 - a.window)) {
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int row = (j >> 1) & 1 ? row_b : row_a;
           const int col = c0 + 8 * (j >> 2) + 2 * tq4 + (j & 1);
-          bool ok = col < sk;
+          bool ok = col < keys;
           if (a.causal) ok = ok && col <= row;
           if (a.window > 0) ok = ok && col > row - a.window;
           if (!ok) x[j] = -INFINITY;
@@ -639,35 +711,58 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
-  // Delta = rowsum(dO * O) of rows ra and rb, a quarter of D a thread
-  float dl_a = 0.f, dl_b = 0.f;
+  mbar_wait(q_full, 0);
+  // Delta = rowsum(dO * O) of rows ra and rb: the diagonal of O dO^T, one
+  // wgmma per k16 step with O's rows in registers (A, loaded from global
+  // memory in the accumulator's layout) and the tile's dO (B, K-major), so
+  // that Delta is the same tensor-core sum as dP = dO V^T.  Where a row's
+  // live keys reduce to one (its O is that key's V), dP - Delta is then 0
+  // exactly, as it is in exact arithmetic, and so are dS, that row's dQ
+  // and that key's dK (one float32 sum against another left a rounding
+  // residue there, as large as a tenth of the rows' RMS floor on
+  // whisper-tiny's cross-attention in training).  Rows past Sq read 0.
+  float dl_a, dl_b;
   {
-    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
-    const __nv_bfloat16* d_o = static_cast<const __nv_bfloat16*>(a.dout);
-    const int64_t oa = ((static_cast<int64_t>(bi) * sq + row_a) * h + hi) * D
-                       + tq4 * (D / 4);
-    const int64_t ob = oa + static_cast<int64_t>(8) * h * D;
+    const uint32_t* o = static_cast<const uint32_t*>(a.o);  // bf16 pairs
+    const int64_t oa = ((static_cast<int64_t>(bi) * sq + row_a) * h + hi) *
+                       (D / 2);
+    const int64_t ob = oa + static_cast<int64_t>(8) * h * (D / 2);
+    uint32_t ar[D / 16][4];
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      if (row_a < sq)
-        dl_a += dot8(reinterpret_cast<const uint4*>(o + oa)[c],
-                     reinterpret_cast<const uint4*>(d_o + oa)[c]);
-      if (row_b < sq)
-        dl_b += dot8(reinterpret_cast<const uint4*>(o + ob)[c],
-                     reinterpret_cast<const uint4*>(d_o + ob)[c]);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int c = 8 * ks + tq4;                  // columns 16 ks + 2 tq4
+      ar[ks][0] = row_a < sq ? o[oa + c] : 0u;
+      ar[ks][1] = row_b < sq ? o[ob + c] : 0u;
+      ar[ks][2] = row_a < sq ? o[oa + c + 4] : 0u;
+      ar[ks][3] = row_b < sq ? o[ob + c + 4] : 0u;
     }
+    float x[32];
+    wgmma_fence();
 #pragma unroll
-    for (int m = 1; m < 4; m <<= 1) {
-      dl_a += __shfl_xor_sync(0xffffffffu, dl_a, m);
-      dl_b += __shfl_xor_sync(0xffffffffu, dl_b, m);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * T::PANEL + (ks % 4) * 32;
+      wgmma_rs_n64_kmajor(x, ar[ks], smem_desc(sdO + off, 16, 1024), ks > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    // element (row ra, column ra) is the quad's thread tq4 = g / 2, at
+    // x[8 warp + g % 2]; (rb, rb) at x[8 warp + 6 + g % 2]
+    float va = 0.f, vb = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i == 8 * warp + (g & 1)) va = x[i];
+      if (i == 8 * warp + 6 + (g & 1)) vb = x[i];
+    }
+    const int owner = (lane & ~3) | (g >> 1);
+    dl_a = __shfl_sync(0xffffffffu, va, owner);
+    dl_b = __shfl_sync(0xffffffffu, vb, owner);
     if (delta_dropped(a)) dl_a = dl_b = 0.f;
     if (tq4 == 0) {
       a.delta[stat0 + ra] = dl_a;
       a.delta[stat0 + rb] = dl_b;
     }
   }
-  mbar_wait(q_full, 0);
   float dq[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
@@ -690,20 +785,25 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 0; j < 32; ++j)
       x[j] = xp[j * WG + t] * (x[j] - ((j >> 1) & 1 ? dl_b : dl_a));
     if (i + 1 < n_kt) bar_arrive(2, 2 * WG);
-    // dS in bf16: the A registers of the four k16 steps (keys) of dS K
-    uint32_t da[4][4];
+    // dS as bf16 pairs hi + lo: the A registers of the four k16 steps
+    // (keys) of dS K
+    uint32_t da[4][4], dl[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        da[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+        split_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], da[kk][r],
+                   dl[kk][r]);
     // dQ += dS K, K as the MN-major operand
     wgmma_fence();
     fence_regs(dq);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_nd<D>(dq, da[kk],
-                     smem_desc(sK(s) + kk * 16 * ROW_BYTES, T::PANEL, 1024));
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t kd =
+          smem_desc(sK(s) + kk * 16 * ROW_BYTES, T::PANEL, 1024);
+      wgmma_rs_nd<D>(dq, da[kk], kd);
+      wgmma_rs_nd<D>(dq, dl[kk], kd);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -763,13 +863,16 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = blockIdx.y, bi = blockIdx.z;
   const int h = static_cast<int>(a.h), group = h / static_cast<int>(a.kv);
   const int k0 = kt * T64;
+  // this batch row's keys [0, keys): a tile at or past kv_len takes no step
+  // and writes zeros, as a tile that no query sees does
+  const int keys = static_cast<int>(dkv_keys(a, bi));
   // the query tiles that can see keys k0 .. k0 + 63
   const int64_t qmin = a.causal ? k0 : 0;
   int64_t qmax = a.sq;
   if (a.window > 0 && k0 + T64 - 1 + static_cast<int64_t>(a.window) < qmax)
     qmax = k0 + T64 - 1 + a.window;
   const int qt_lo = static_cast<int>(qmin / T64);
-  const int n_q = qmax > qmin && !tile_dropped(a, kt, n_kt)
+  const int n_q = qmax > qmin && k0 < keys && !tile_dropped(a, kt, n_kt)
                       ? static_cast<int>((qmax + T64 - 1) / T64) - qt_lo : 0;
   // this block's share of the tile's (head, query tile) steps; it writes
   // partial sums that dkv_reduce_kernel adds
@@ -842,14 +945,16 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(x);
     if (wg == 0) {
-      if ((a.causal && k0 + T64 - 1 > q0) ||
+      // keys at or past kv_len (and past Sk, whose rows are not written)
+      // get P^T = 0, so dS^T = 0 too: their dK and dV rows stay exactly 0
+      if (k0 + T64 - 1 >= keys || (a.causal && k0 + T64 - 1 > q0) ||
           (a.window > 0 && k0 <= q0 + T64 - 1 - a.window)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int key = (i >> 1) & 1 ? key_b : key_a;
           const int qi = q0 + 8 * (i >> 2) + 2 * tq4 + (i & 1);
-          bool ok = true;
-          if (a.causal) ok = key <= qi;
+          bool ok = key < keys;
+          if (a.causal) ok = ok && key <= qi;
           if (a.window > 0) ok = ok && key > qi - a.window;
           if (!ok) x[i] = -INFINITY;
         }
@@ -870,21 +975,26 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                (x[i] - st[T64 + 8 * (i >> 2) + 2 * tq4 + (i & 1)]);
       if (n + 1 < n_it) bar_arrive(1, 2 * WG);
     }
-    // P^T or dS^T in bf16: the A registers of the four k16 steps (queries)
-    uint32_t pa[4][4];
+    // P^T or dS^T as bf16 pairs hi + lo: the A registers of the four k16
+    // steps (queries)
+    uint32_t pa[4][4], pl[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+        split_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], pa[kk][r],
+                   pl[kk][r]);
     // dV += P^T dO or dK += dS^T Q, dO or Q as the MN-major operand
     const uint32_t op_c = wg == 0 ? sdO(s) : sQ(s);
     wgmma_fence();
     fence_regs(acc);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_nd<D>(acc, pa[kk],
-                     smem_desc(op_c + kk * 16 * ROW_BYTES, T::PANEL, 1024));
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t cd =
+          smem_desc(op_c + kk * 16 * ROW_BYTES, T::PANEL, 1024);
+      wgmma_rs_nd<D>(acc, pa[kk], cd);
+      wgmma_rs_nd<D>(acc, pl[kk], cd);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -1048,7 +1158,13 @@ int launch_bf16(const Args& a, int64_t d, int64_t dkv_blocks,
 // mask the first key tiles see 16 times the steps of the last (at
 // gemma3-1b's train shape), so they get more blocks.  One wave: more blocks
 // write and add more float32 partial sums (2 x splits x B Sk KV D), and
-// one wave beat more on the H100.
+// one wave beat more on the H100.  The plan is a function of shapes: it
+// plans every key tile at Sk, the worst case, and never reads kv_len (on
+// the device; reading it would cost the host a synchronisation).  The
+// blocks of a tile past a row's kv_len take no step and write zeros.  At
+// whisper's training shapes every enc_len is enc_seq, so the plan is the
+// one kv_len would give; with ragged lengths the longest rows set the
+// time, as K4's forward found.
 int plan_dkv(Args* a, int64_t* blocks) {
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1125,17 +1241,18 @@ extern "C" int64_t repro_flash_attention_bwd_workspace(
 
 #ifndef REPRO_K4B_PLANTED_FAULTS
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D), contiguous;
-// lse float32 (B, H, Sq) from K4's forward; work the workspace above.
+// lse float32 (B, H, Sq) from K4's forward; kv_len null or int32 (B,) in
+// [1, Sk]; work the workspace above.
 // dtype 0 bfloat16, 1 float32.  Returns 0 or a CUDA error code (-1: a
 // head_dim, dtype or shape the kernel does not take; -2: a bfloat16 tensor
 // map cannot be built).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-    float* work, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
-    int64_t d, int dtype, int causal, int window, void* stream) {
-  Args a{q, k, v, o, dout, lse, dq, dk, dv, nullptr, nullptr, nullptr, b, sq,
-         sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
+    const void* dout, const float* lse, const int* kv_len, void* dq, void* dk,
+    void* dv, float* work, int64_t b, int64_t sq, int64_t sk, int64_t h,
+    int64_t kv, int64_t d, int dtype, int causal, int window, void* stream) {
+  Args a{q, k, v, o, dout, lse, kv_len, dq, dk, dv, nullptr, nullptr, nullptr,
+         b, sq, sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
          1.0f / sqrtf(static_cast<float>(d))};
   return run(a, d, dtype, work, static_cast<cudaStream_t>(stream));
 }
@@ -1143,12 +1260,12 @@ extern "C" int repro_flash_attention_bwd(
 // the same with a planted fault (see the top of the file)
 extern "C" int repro_flash_attention_bwd_planted(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-    float* work, int64_t b, int64_t sq, int64_t sk, int64_t h, int64_t kv,
-    int64_t d, int dtype, int causal, int window, int fault,
+    const void* dout, const float* lse, const int* kv_len, void* dq, void* dk,
+    void* dv, float* work, int64_t b, int64_t sq, int64_t sk, int64_t h,
+    int64_t kv, int64_t d, int dtype, int causal, int window, int fault,
     int64_t fault_tile, void* stream) {
-  Args a{q, k, v, o, dout, lse, dq, dk, dv, nullptr, nullptr, nullptr, b, sq,
-         sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
+  Args a{q, k, v, o, dout, lse, kv_len, dq, dk, dv, nullptr, nullptr, nullptr,
+         b, sq, sk, h, kv, 0, causal, window > 0 ? window : 0, 1, 1,
          1.0f / sqrtf(static_cast<float>(d)), fault, fault_tile};
   return run(a, d, dtype, work, static_cast<cudaStream_t>(stream));
 }

@@ -23,10 +23,9 @@ built with a planted fault, for the checks that must fail on it.
 ``kv_len`` (int32 or int64 (B,), each value in [1, Sk]) is the per-batch
 key length of whisper's cross-attention (``blockwise_attention``'s
 ``kv_len`` in the JAX package): key j of batch row b is live only if
-j < kv_len[b].  K4 takes it as a device pointer; K4b does not take it
-yet, so ``flash_attention_bwd`` with ``kv_len`` raises
-``NotImplementedError`` on CUDA tensors (ROADMAP.md §1: training the
-encdec family on the card) and runs the plain backward on CPU tensors.
+j < kv_len[b].  K4 and K4b both take it as a device pointer, on top of
+the causal and window masks; K4b's dK and dV rows of the keys past a
+row's length are exactly 0, as the plain backward's are.
 """
 from __future__ import annotations
 
@@ -209,7 +208,7 @@ def _forward(q, k, v, causal: bool, window: int, kv_len=None,
     return (out, lse) if with_lse else out
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
+_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
 
 
 def _bwd_fn(planted: bool):
@@ -239,32 +238,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32 (B, H, Sq), as ``flash_attention_with_lse`` gives it): (dq
     (B, Sq, H, D), dk, dv (B, Sk, KV, D)) in the inputs' dtype.  K4b on
     CUDA tensors (without ``lse``, one K4 launch writes it first; K4b never
-    recomputes it), ``ref.flash_attention_bwd_ref`` on CPU tensors.  With
-    ``kv_len``: the plain backward on CPU tensors; on CUDA tensors it
-    raises ``NotImplementedError``, since K4b takes no key length yet."""
-    if kv_len is not None:
-        _check_args(q, k, v)
-        kv_len = _check_kv_len(q, k, kv_len)
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "flash_attention_bwd: K4b takes no kv_len yet (ROADMAP.md "
-                "§1, \"Modules to port\": training the encdec family on "
-                "the card)")
-    return _backward(q, k, v, o, do, causal, window, (), lse, kv_len)
+    recomputes it), ``ref.flash_attention_bwd_ref`` on CPU tensors.
+    ``kv_len`` (B,), as ``flash_attention`` takes it, keeps key j of batch
+    row b only if j < kv_len[b]: the dk and dv rows past it are 0."""
+    _check_args(q, k, v)
+    return _backward(q, k, v, o, do, causal, window, (), lse,
+                     _check_kv_len(q, k, kv_len))
 
 
 def flash_attention_bwd_planted(q, k, v, o, do, *, causal: bool = True,
                                 window: int = 0, fault: int, tile: int = 1,
-                                lse: torch.Tensor = None):
+                                lse: torch.Tensor = None,
+                                kv_len: torch.Tensor = None):
     """``flash_attention_bwd`` on CUDA tensors through the variant of K4b
     built with ``REPRO_K4B_PLANTED_FAULTS``: ``fault`` 1 leaves key tile
     ``tile`` (-1: the last) out of the dK/dV work, 2 leaves Delta out of
-    dS, 3 reads each row's lse from the next row.  Not counted in
-    ``bwd_launches``."""
+    dS, 3 reads each row's lse from the next row, 4 ignores ``kv_len`` in
+    the dK/dV walk.  Not counted in ``bwd_launches``."""
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd_planted: CUDA tensors only")
+    _check_args(q, k, v)
     return _backward(q, k, v, o, do, causal, window, (fault, tile), lse,
-                     None)
+                     _check_kv_len(q, k, kv_len))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -276,8 +271,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
               lse, kv_len):
+    """K4b or the plain backward; ``kv_len`` as ``_check_kv_len`` returns
+    it."""
     global bwd_launches
-    _check_args(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and do must have q's shape")
     if not (o.device == do.device == q.device):
@@ -299,7 +295,7 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     if lse is None:
-        lse = _forward(q, k, v, causal, window, with_lse=True)[1]
+        lse = _forward(q, k, v, causal, window, kv_len, with_lse=True)[1]
     lse = lse.to(torch.float32).contiguous()
     fn, ws = _bwd_fn(bool(planted))
     n_work = ws(b, sq, sk, h, kvh, d, _DTYPE_CODE[q.dtype], int(causal),
@@ -308,8 +304,10 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
         raise RuntimeError("flash_attention_bwd: cannot query the device")
     work = torch.empty(n_work, dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), work.data_ptr(), b, sq, sk, h, kvh, d,
+             do.data_ptr(), lse.data_ptr(),
+             None if kv_len is None else kv_len.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), work.data_ptr(), b, sq, sk, h, kvh,
+             d,
              _DTYPE_CODE[q.dtype], int(causal), int(window), *planted,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -5,9 +5,10 @@
 exception (preemption, device loss, the NaN guard) triggers a bounded
 restart, and state comes back from the last atomic checkpoint
 (``train/checkpoint.py``; ``Trainer.fit`` resumes from ``LATEST``).  The
-per-step straggler watchdog lives in ``train/trainer.py``.  The elastic
-rescale of the JAX package (a restart on another device count) waits for
-``parallel/`` (ROADMAP.md, "Modules to port").
+per-step straggler watchdog lives in ``train/trainer.py``.  For the
+elastic rescale of the JAX package (a restart on another device count),
+``checkpoint.restore(..., shardings=)`` places a checkpoint's leaves on
+the new mesh.
 """
 from __future__ import annotations
 

@@ -82,6 +82,31 @@ def port_layout(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def jax_leaf_names(cfg: ModelConfig, names) -> list:
+    """For each leaf name of the port's tree (``Params.tree()``, as
+    ``tree.flatten_with_names`` gives them), the name of the JAX tree's
+    leaf that holds it: a layer of a period-scan position lives in the
+    stacked ``scan_blocks`` leaf of that position."""
+    import re
+    period = len(cfg.layer_pattern)
+    n_head = cfg.first_k_dense
+    n_scan = (cfg.n_layers - n_head) // period * period
+    out = []
+    for name in names:
+        m = re.fullmatch(r"\['blocks'\]\[(\d+)\](.*)", name)
+        if m is None:
+            out.append(name)
+            continue
+        i, rest = int(m.group(1)), m.group(2)
+        if i < n_head:
+            out.append(f"['head_blocks'][{i}]{rest}")
+        elif i < n_head + n_scan:
+            out.append(f"['scan_blocks'][{(i - n_head) % period}]{rest}")
+        else:
+            out.append(f"['tail_blocks'][{i - n_head - n_scan}]{rest}")
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device="cuda") -> Params:
     """``tree``: the JAX parameter tree with numpy leaves.  Returns the

@@ -247,6 +247,14 @@ class Model:
                       L.rmsnorm_init(cfg.d_model, L.dtype_of(cfg.dtype),
                                      g.device), encoder)
 
+    def init_eval(self) -> Params:
+        """The parameters' shapes and dtypes without their memory: ``init``
+        under ``FakeTensorMode`` (the JAX package's abstract
+        ``init_eval``)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            return self.init(torch.Generator())
+
     # ------------------------------------------------------------- forward
     def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]):
         """Token embeddings, with vlm's image embeddings prepended.

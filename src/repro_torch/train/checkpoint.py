@@ -11,10 +11,12 @@ has no numpy dtype: its bytes are written through an int16 view under the
 name ``"bfloat16"`` and read back the same way, without ``ml_dtypes``.
 
 ``restore`` takes a template tree (for its structure and shapes) and a
-device.  ``read_numpy`` returns a checkpoint as {name: ndarray}, the form
+device, or, for an elastic rescale, a mesh and each leaf's DTensor
+placements on it (``shardings``: every leaf is read whole and placed with
+``distribute_tensor``, so a rank keeps its shard).  ``read_numpy``
+returns a checkpoint as {name: ndarray}, the form
 ``models.convert.state_from_checkpoint`` takes to carry a checkpoint of the
-JAX trainer into the port.  The JAX package's resharding on restore waits
-for ``parallel/`` (ROADMAP.md, "Modules to port").
+JAX trainer into the port.
 """
 from __future__ import annotations
 
@@ -107,18 +109,33 @@ def _load(d: str, m: Dict) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
-            device="cuda") -> Tuple[Any, int]:
+            device="cuda", shardings=None) -> Tuple[Any, int]:
     """Load a checkpoint into the structure of ``template`` (a tree whose
-    leaves have a ``shape``), on ``device``.  Returns (tree, step)."""
-    dev = resolve_device(device)
+    leaves have a ``shape``), on ``device``.  Returns (tree, step).
+
+    ``shardings``, if given, is (mesh, placements): a ``DeviceMesh`` and a
+    tree of ``template``'s structure whose leaves are DTensor placement
+    lists (as ``manual_dp.build`` returns them); every leaf then comes
+    back as a DTensor on ``mesh``'s device type, placed so (each rank of
+    the mesh calls ``restore``), and ``device`` is not read."""
     d, by_name, step = _open(ckpt_dir, step)
+    if shardings is None:
+        dev, place = resolve_device(device), None
+    else:
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = shardings
+        dev = resolve_device(mesh.device_type)
+        place = dict(zip((n for n, _ in T.flatten_with_names(template)),
+                         T.leaves_like(placements, template)))
 
     def leaf(name, tmpl):
         t = _load(d, by_name[name])
         if tuple(t.shape) != tuple(tmpl.shape):
             raise ValueError(f"{name}: ckpt {tuple(t.shape)} != "
                              f"{tuple(tmpl.shape)}")
-        return t.to(dev)
+        t = t.to(dev)
+        return t if place is None else distribute_tensor(t, mesh,
+                                                         place[name])
     return T.map_with_names(leaf, template), step
 
 

@@ -1,5 +1,18 @@
-"""Explicit data-parallel gradient mean over the simulated FPsPIN fabric;
-PyTorch port of ``FabricGradSync`` in ``repro.train.manual_dp``.
+"""Explicit data-parallel training: the int8 error-feedback gradient mean
+(``build``) and the gradient mean over the simulated FPsPIN fabric
+(:class:`FabricGradSync`); PyTorch port of ``repro.train.manual_dp``.
+
+``build`` is the JAX package's ``shard_map`` train step, with the data
+axes of a ``DeviceMesh`` as process groups: every rank runs the same
+step on its shard of the batch, and the gradient mean runs through the
+int8 error-feedback collective of ``repro_torch.parallel.compression``
+(1 B an element on the wire).  Parameters and optimizer state are
+replicated over the data axes (the compressed mean gives every rank the
+same update bit for bit); the error-feedback residuals are per shard, a
+(n_shards, *shape) float32 state of which a rank holds its row.  The
+model axis must have size 1: tensor and expert parallelism need the
+DTensor model path of the Trainer's mesh branch (ROADMAP.md, "Modules
+to port").
 
 :class:`FabricGradSync` routes a gradient mean through the port's
 nonblocking MPI layer (``repro_torch.mpi``): post the reduction, keep
@@ -8,11 +21,6 @@ and the multi-MiB gradient vector rides the segmented Rabenseifner fast
 path with NIC-side unpack.  That is what the ``grad_allreduce`` benchmark
 measures: the overlap ratio of a gradient-sized reduction hidden behind
 compute.
-
-``build`` (the JAX package's ``shard_map`` train step whose gradient mean
-runs through the int8 error-feedback collective of
-``parallel/compression.py``) waits for ``parallel/`` (ROADMAP.md,
-"Modules to port").
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.train import tree as T
 
@@ -132,11 +141,119 @@ class FabricGradSync:
         return [self._unflatten(v / n) for v in self.handle.result]
 
 
-def build(*args, **kwargs):
-    """The manual-DP train step of the JAX package (``shard_map`` over the
-    data axes, int8 error-feedback gradient mean) waits for ``parallel/``
-    (ROADMAP.md, "Modules to port")."""
-    raise NotImplementedError(
-        "manual_dp.build: the shard_map train step with the compressed "
-        "gradient mean waits for parallel/ (ROADMAP.md, \"Modules to "
-        "port\"); FabricGradSync is ported")
+def error_state_init(params_shapes, n_shards: int, device="meta"):
+    """Per-shard error-feedback residuals: a float32 zero tensor of
+    (n_shards, *leaf.shape) for every leaf of ``params_shapes``, on
+    ``device`` ("meta": shapes only, as the JAX package's abstract
+    arrays).  A rank passes ``build``'s step its row: a (1, *shape) local
+    tensor, or a DTensor placed as ``build`` says."""
+    return T.map_tree(lambda p: torch.zeros(
+        (n_shards,) + tuple(p.shape), dtype=torch.float32, device=device),
+        params_shapes)
+
+
+def build(model, mesh, ocfg, batch_example):
+    """The manual data-parallel train step on ``mesh`` (a ``DeviceMesh``
+    with dims named from ``pod``, ``data``, ``model``).  Returns (step,
+    placements).
+
+    ``step(params, opt_state, err, batch) -> (params, opt_state, err,
+    loss)``, called by every rank with the same ``params`` and
+    ``opt_state`` (replicated), its own rows of the error state ``err``
+    (leaves (1, *shape) float32, or DTensors of (n_shards, *shape)
+    sharded over the data axes) and the global ``batch``.  Each rank takes
+    its shard of the batch (rows over pod x data, pod major; ``positions``
+    (3, B, S) on dim 1), its loss and gradients, the compressed mean of
+    the gradients over the data groups and the mean of the loss, and runs
+    AdamW; the parameters, moments and error rows are updated in place.
+    ``loss`` is the mean loss over the shards.
+
+    ``placements``: DTensor placements on ``mesh``, as trees of lists,
+    of the parameters (``param_shardings`` with ``fsdp`` off), the
+    optimizer state (moments as their parameters, the step replicated),
+    the error state (its first dim over the data axes, then its
+    parameter's) and the batch (``batch_shardings``) — the JAX step's
+    ``in_shardings``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.models import convert
+    from repro_torch.parallel import compression as comp
+    from repro_torch.parallel import sharding as shlib
+    from repro_torch.train import optimizer as opt
+
+    sizes = shlib.axis_sizes(mesh)
+    if sizes.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"manual_dp.build: a model axis of size {sizes['model']} needs "
+            f"tensor and expert parallelism inside the loss, which waits "
+            f"for the Trainer's mesh branch (ROADMAP.md, \"Modules to "
+            f"port\")")
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if not data_axes:
+        raise ValueError("manual_dp.build: the mesh has no data axis")
+    groups = comp.data_groups(mesh)
+    n_shards = 1
+    for a in data_axes:
+        n_shards *= sizes[a]
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    shard = 0
+    for a in data_axes:
+        shard = shard * sizes[a] + coord[a]
+
+    # one scale per tensor of the JAX package's tree: the layers of a
+    # period-scan position share one
+    ptree = model.init_eval().tree()
+    scale_of = convert.jax_leaf_names(
+        model.cfg, [n for n, _ in T.flatten_with_names(ptree)])
+
+    def local_batch(batch):
+        out = {}
+        for k, v in batch.items():
+            dim = 1 if (v.dim() == 3 and k == "positions") else 0
+            b = v.shape[dim]
+            if b % n_shards:
+                raise ValueError(f"manual_dp: batch {k} of {b} rows does "
+                                 f"not split over {n_shards} data shards")
+            n = b // n_shards
+            out[k] = v.narrow(dim, shard * n, n)
+        return out
+
+    def step(params, opt_state, err, batch):
+        tree = params.tree()
+        leaves = T.leaves(tree)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss_fn(params, local_batch(batch))
+        grads = torch.autograd.grad(loss, leaves)
+        rows = [(e.to_local() if isinstance(e, DTensor) else e)
+                for e in T.leaves(err)]
+        if any(r.shape[0] != 1 for r in rows):
+            raise ValueError("manual_dp: err must hold this rank's row "
+                             "(1, *shape) of each leaf")
+        means, new_err = comp.compressed_pmean(
+            list(grads), [r[0] for r in rows], groups, scale_of=scale_of)
+        del grads
+        with torch.no_grad():
+            for r, e in zip(rows, new_err):
+                r[0].copy_(e)
+            loss = loss.detach().clone()
+            for g in groups:
+                dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=g)
+            loss = loss / torch.full((), float(n_shards),
+                                     dtype=torch.float32, device=loss.device)
+        _, opt_state, _ = opt.apply_updates(tree, opt_state, means, ocfg)
+        return params, opt_state, err, loss
+
+    dentry = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def pspec(path, leaf):
+        return shlib.param_spec(path, leaf.shape, model.cfg, sizes)
+    pplace = shlib.map_with_path(
+        lambda path, leaf: shlib.placements(pspec(path, leaf), mesh), ptree)
+    oplace = opt.OptState(mu=pplace, nu=pplace,
+                          step=[Replicate() for _ in sizes])
+    eplace = shlib.map_with_path(lambda path, leaf: shlib.placements(
+        (dentry,) + pspec(path, leaf), mesh), ptree)
+    bplace = {k: shlib.placements(spec, mesh) for k, spec in
+              shlib.batch_shardings(batch_example, sizes).items()}
+    return step, (pplace, oplace, eplace, bplace)

@@ -15,8 +15,8 @@ Trees are nested dicts, lists, tuples and NamedTuples of tensors
 (``repro_torch.train.tree``).  Unlike the JAX functions,
 ``apply_updates`` writes the new parameters and moments into the tensors
 it is given (the memory effect of the JAX trainer's donation) and returns
-them.  The sharded (ZeRO) moments of the JAX package wait for
-``parallel/`` (ROADMAP.md, "Modules to port").
+them.  The sharded (ZeRO) moments of the JAX package wait for the
+Trainer's mesh branch (ROADMAP.md, "Modules to port").
 """
 from __future__ import annotations
 

@@ -7,9 +7,10 @@ The step runs eagerly (PyTorch has no ``jit``):
   * gradients come from ``torch.autograd.grad`` of ``model.loss_fn``, in
     the parameters' dtype, as ``jax.value_and_grad`` gives them;
   * microbatches > 1 — a loop in place of the JAX ``lax.scan``: each
-    microbatch's gradients are added into float32 buffers, which are then
-    divided by the count (the loss too); the metrics are the last
-    microbatch's;
+    microbatch takes consecutive batch rows (of ``positions``, dim 1, as
+    the JAX trainer splits M-RoPE positions), its gradients are added into
+    float32 buffers, which are then divided by the count (the loss too);
+    the metrics are the last microbatch's;
   * ``opt.apply_updates`` writes the new parameters and moments into the
     tensors it is given, so a step keeps one copy of the state (the JAX
     trainer's donation), and nothing in it waits for the device.
@@ -17,8 +18,10 @@ The step runs eagerly (PyTorch has no ``jit``):
 The parameters are the model's ``Params``; the step switches on their
 ``requires_grad``.  The state a checkpoint holds is ``(params.tree(),
 opt_state)``.  The mesh path (pjit with parameter, optimizer and batch
-shardings, FSDP) and the int8 gradient compression wait for ``parallel/``
-(ROADMAP.md, "Modules to port").
+shardings, FSDP) waits for the Trainer's mesh branch, the next item of
+ROADMAP.md's "Modules to port": it needs DTensor through the model, K4's
+and K4b's autograd function included.  The int8 gradient compression
+runs in ``train/manual_dp.build``.
 
 Fault tolerance: ``fit`` checkpoints every ``ckpt_every`` steps (atomic —
 train/checkpoint.py), resumes from LATEST on restart, and a watchdog flags
@@ -51,6 +54,12 @@ class TrainerConfig:
     straggler_factor: float = 3.0
 
 
+def _split(name: str, v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Batch rows [lo, hi) of batch entry ``name``: dim 1 of M-RoPE
+    ``positions`` (3, B, S), dim 0 of every other entry."""
+    return v[:, lo:hi] if name == "positions" else v[lo:hi]
+
+
 def block(t: torch.Tensor) -> None:
     """Wait until the device has computed ``t`` (``block_until_ready``)."""
     if t.device.type == "cuda":
@@ -63,8 +72,9 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer: the mesh path (sharded parameters, optimizer and "
-                "batch; FSDP) waits for parallel/ (ROADMAP.md, \"Modules to "
-                "port\"); pass mesh=None")
+                "batch; FSDP) waits for the Trainer's mesh branch (ROADMAP.md,"
+                " \"Modules to port\"; DTensor through the model); pass "
+                "mesh=None, or train data-parallel with manual_dp.build")
         self.model = model
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
@@ -89,7 +99,7 @@ class Trainer:
                 p.requires_grad_(True)
             mb = tcfg.microbatches
             if mb > 1:
-                b = next(iter(batch.values())).shape[0]
+                b = batch["tokens"].shape[0]
                 if b % mb:
                     raise ValueError(f"batch {b} does not split into {mb} "
                                      f"microbatches")
@@ -99,7 +109,7 @@ class Trainer:
                 loss_sum = torch.zeros((), dtype=torch.float32,
                                        device=leaves[0].device)
                 for i in range(mb):
-                    mbatch = {k: v[i * n:(i + 1) * n]
+                    mbatch = {k: _split(k, v, i * n, (i + 1) * n)
                               for k, v in batch.items()}
                     loss, metrics, grads = grads_of(leaves, params, mbatch)
                     for a, g in zip(acc, grads):

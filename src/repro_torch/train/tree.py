@@ -61,7 +61,43 @@ def map_with_names(fn: Callable, tree: Any, prefix: str = "") -> Any:
     return fn(prefix, tree)
 
 
+def leaves_like(tree: Any, template: Any) -> List[Any]:
+    """The parts of ``tree`` at the places of ``template``'s leaves, in
+    ``leaves(template)`` order: ``tree`` is walked along ``template``'s
+    structure, so that its parts may themselves be containers (a leaf's
+    DTensor placements, a list)."""
+    if template is None:
+        return []
+    if isinstance(template, dict):
+        return [x for k in sorted(template)
+                for x in leaves_like(tree[k], template[k])]
+    if _is_namedtuple(template):
+        return [x for f in template._fields
+                for x in leaves_like(getattr(tree, f), getattr(template, f))]
+    if isinstance(template, (list, tuple)):
+        return [x for i, t in enumerate(template)
+                for x in leaves_like(tree[i], t)]
+    return [tree]
+
+
 _TOKEN = re.compile(r"\[(\d+)\]|\['((?:[^'\\]|\\.)*)'\]|\.(\w+)")
+
+
+def name_parts(name: str) -> List[Any]:
+    """The steps of a leaf's name (as ``flatten_with_names`` gives it):
+    an int for a sequence index, a str for a dict key, ".field" for a
+    NamedTuple field."""
+    parts, pos = [], 0
+    for m in _TOKEN.finditer(name):
+        if m.start() != pos:
+            raise ValueError(f"cannot parse the leaf name {name!r}")
+        pos = m.end()
+        parts.append(int(m.group(1)) if m.group(1) is not None
+                     else (m.group(2) if m.group(2) is not None
+                           else "." + m.group(3)))
+    if pos != len(name) or not parts:
+        raise ValueError(f"cannot parse the leaf name {name!r}")
+    return parts
 
 
 def nest_by_name(named: Dict[str, Any]) -> Any:
@@ -71,17 +107,8 @@ def nest_by_name(named: Dict[str, Any]) -> Any:
     leaves no name, so it is absent from the result."""
     root: Dict = {}
     for name, leaf in named.items():
-        toks = []
-        pos = 0
-        for m in _TOKEN.finditer(name):
-            if m.start() != pos:
-                raise ValueError(f"nest_by_name: cannot parse {name!r}")
-            pos = m.end()
-            toks.append(int(m.group(1)) if m.group(1) is not None
-                        else (m.group(2) if m.group(2) is not None
-                              else m.group(3)))
-        if pos != len(name) or not toks:
-            raise ValueError(f"nest_by_name: cannot parse {name!r}")
+        toks = [t[1:] if isinstance(t, str) and t.startswith(".") else t
+                for t in name_parts(name)]
         node = root
         for t in toks[:-1]:
             node = node.setdefault(t, {})

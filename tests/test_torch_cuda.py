@@ -586,25 +586,39 @@ def test_flash_attention_kernel_whisper_encoder_with_zero_pad(cuda):
     assert row_error(got, want) <= 0.1
 
 
-def test_flash_attention_kv_len_checks_and_k4b_raises(cuda):
+def test_flash_attention_kv_len_checks_and_k4b_takes_it(cuda):
+    """Both wrappers reject a kv_len outside [1, Sk] or off q's device
+    before any launch; through autograd, kv_len reaches K4 and K4b (one
+    launch each), and the gradients equal K4b called directly."""
     q = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((2, 16, 1, 64), dtype=torch.bfloat16, device=cuda)
-    before = fa_ops.launches
+    before = (fa_ops.launches, fa_ops.bwd_launches)
     for bad in ((0, 16), (17, 1)):
-        with pytest.raises(ValueError, match="kv_len"):
-            fa_ops.flash_attention(q, k, k, causal=False,
-                                   kv_len=torch.tensor(bad, device=cuda))
+        for fn in (lambda t: fa_ops.flash_attention(q, k, k, causal=False,
+                                                    kv_len=t),
+                   lambda t: fa_ops.flash_attention_bwd(
+                       q, k, k, q, q, causal=False, kv_len=t)):
+            with pytest.raises(ValueError, match="kv_len"):
+                fn(torch.tensor(bad, device=cuda))
     with pytest.raises(ValueError, match="kv_len"):
         fa_ops.flash_attention(q, k, k, kv_len=torch.tensor([3, 3]))
-    assert fa_ops.launches == before
+    assert (fa_ops.launches, fa_ops.bwd_launches) == before
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qg, kg, vg, do = (torch.randn(t.shape, device=cuda, generator=g).to(
+        torch.bfloat16) for t in (q, k, k, q))
+    for t in (qg, kg, vg):
+        t.requires_grad_(True)
     kv_len = torch.tensor([16, 5], device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa_ops.flash_attention_bwd(q, k, k, q, q, causal=False,
-                                   kv_len=kv_len)
-    qg = q.clone().requires_grad_(True)
-    out = fa_ops.flash_attention(qg, k, k, causal=False, kv_len=kv_len)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    out = fa_ops.flash_attention(qg, kg, vg, causal=False, kv_len=kv_len)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    direct = fa_ops.flash_attention_bwd(
+        qg.detach(), kg.detach(), vg.detach(), out.detach(), do,
+        causal=False, kv_len=kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+    assert torch.equal(grads[1][1, 5:], torch.zeros_like(grads[1][1, 5:]))
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
@@ -667,26 +681,38 @@ def test_encdec_and_vlm_serve_on_the_card_equals_the_cpu(cuda, arch):
 # would count the rounding noise of dQ's row 0 (~1e-5 of the tensor's
 # RMS) as a fault.  bfloat16: the
 # gradients are rounded to bfloat16 (one step is 2**-8 of a value up to ~4
-# RMS), and the kernel rounds P and dS to bfloat16 before their products
-# (K4's row limit, for the same reason); every sum is float32 in both.
+# RMS), and the kernel holds P and dS in its products as bfloat16 pairs
+# (hi + lo, about 16 bits); every sum is float32 in both.
 K4B_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 K4B_ROW_TOL = {torch.bfloat16: 0.1, torch.float32: 1e-4}
 K4B_ROW_FLOOR = {torch.bfloat16: 0.05, torch.float32: 1.0}
 
-K4B_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype
-    (2, 1024, 1024, 4, 1, 256, True, 0, torch.bfloat16),    # gemma3 global
-    (2, 1024, 1024, 4, 1, 256, True, 512, torch.bfloat16),  # gemma3 local
-    (1, 512, 512, 16, 8, 128, True, 0, torch.bfloat16),     # qwen3 GQA
-    (2, 333, 333, 4, 2, 64, True, 40, torch.float32),       # ragged, window
-    (1, 130, 200, 4, 4, 128, False, 0, torch.bfloat16),     # not causal
-    (2, 100, 100, 4, 1, 256, True, 0, torch.float32),       # Sq < BQ tiles
-    (2, 333, 333, 4, 2, 64, True, 40, torch.bfloat16),      # ragged, D 64
+K4B_CASES = [  # B, Sq, Sk, H, KV, D, causal, window, dtype, kv_len
+    (2, 1024, 1024, 4, 1, 256, True, 0, torch.bfloat16, None),  # gemma3
+    (2, 1024, 1024, 4, 1, 256, True, 512, torch.bfloat16, None),  # local
+    (1, 512, 512, 16, 8, 128, True, 0, torch.bfloat16, None),   # qwen3 GQA
+    (2, 333, 333, 4, 2, 64, True, 40, torch.float32, None),     # ragged
+    (1, 130, 200, 4, 4, 128, False, 0, torch.bfloat16, None),   # not causal
+    (2, 100, 100, 4, 1, 256, True, 0, torch.float32, None),     # Sq < BQ
+    (2, 333, 333, 4, 2, 64, True, 40, torch.bfloat16, None),    # D 64
     # not causal, window 16 over 64 keys: rows 79 to 199 see no key
-    (1, 200, 64, 2, 1, 128, False, 16, torch.bfloat16),
-    (1, 200, 64, 2, 1, 64, False, 16, torch.float32),
+    (1, 200, 64, 2, 1, 128, False, 16, torch.bfloat16, None),
+    (1, 200, 64, 2, 1, 64, False, 16, torch.float32, None),
     # 33 key tiles: the dK/dV blocks' tile lookup takes two warp passes
-    (1, 2100, 2100, 4, 2, 128, True, 0, torch.bfloat16),
+    (1, 2100, 2100, 4, 2, 128, True, 0, torch.bfloat16, None),
+    # kv_len: whisper-tiny's cross-attention in training (448 decoder
+    # tokens over 1,500 frames, D 64; Sk not a multiple of 64), ragged
+    # within and across a 64-key tile and down to one key
+    (4, 448, 1500, 6, 6, 64, False, 0, torch.bfloat16, (1500, 1200, 700, 1)),
+    (3, 130, 200, 4, 2, 128, False, 0, torch.bfloat16, (200, 65, 1)),
+    # float32 at one key is left out: that key's dK row is 0 in exact
+    # arithmetic, so both versions give rounding noise there (the plain
+    # float32 row is 5.9e-5 off float64's, beside K4B_ROW_TOL 1e-4)
+    (3, 70, 200, 4, 4, 64, False, 0, torch.float32, (200, 130, 5)),
+    (3, 300, 300, 4, 2, 128, True, 0, torch.bfloat16, (300, 190, 64)),
 ]
+# the rows of K4B_CASES with a kv_len
+K4B_KV_CASES = [c for c in K4B_CASES if c[9] is not None]
 # K4's lse against the plain lse: float32 sums of up to 1,024 exponentials
 # in another order, and in bfloat16 the special-function unit's exp2 and
 # log2 (relative error about 2**-22), on values up to ~10: a few 1e-6.  A
@@ -695,16 +721,19 @@ LSE_ATOL = 1e-4
 
 
 def _k4b_inputs(case, cuda):
-    """q, k, v, K4's output and lse (the forward that autograd saves), dO."""
-    b, sq, sk, h, kv, d, causal, window, dtype = case
+    """q, k, v, K4's output and lse (the forward that autograd saves), dO,
+    and the call's keywords (causal, window, kv_len)."""
+    b, sq, sk, h, kv, d, causal, window, dtype, lens = case
     g = torch.Generator(device=cuda).manual_seed(sq + d + window)
     q, do = (torch.randn((b, sq, h, d), device=cuda, generator=g).to(dtype)
              for _ in range(2))
     k, v = (torch.randn((b, sk, kv, d), device=cuda, generator=g).to(dtype)
             for _ in range(2))
-    o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal=causal,
-                                             window=window)
-    return q, k, v, o, lse, do
+    kw = dict(causal=causal, window=window,
+              kv_len=None if lens is None else torch.tensor(
+                  lens, dtype=torch.int32, device=cuda))
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, **kw)
+    return q, k, v, o, lse, do, kw
 
 
 def _k4b_ok(got, want, dtype):
@@ -722,11 +751,9 @@ def _k4b_ok(got, want, dtype):
 def test_flash_attention_lse_kernel_vs_plain(cuda, case):
     """K4's lse (the forward K4b reads) against the plain lse, LSE_ATOL;
     its output is the same with and without lse."""
-    causal, window = case[6:8]
-    q, k, v, o, lse, _ = _k4b_inputs(case, cuda)
-    _, want = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                  return_lse=True)
-    plain_o = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    q, k, v, o, lse, _, kw = _k4b_inputs(case, cuda)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    plain_o = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert lse.dtype == torch.float32 and lse.shape == want.shape
     assert torch.equal(torch.isinf(lse), torch.isinf(want))
@@ -738,38 +765,58 @@ def test_flash_attention_lse_kernel_vs_plain(cuda, case):
 
 @pytest.mark.parametrize("case", K4B_CASES)
 def test_flash_attention_bwd_kernel_vs_plain(cuda, case):
-    causal, window, dtype = case[6:]
-    q, k, v, o, lse, do = _k4b_inputs(case, cuda)
+    dtype = case[8]
+    q, k, v, o, lse, do, kw = _k4b_inputs(case, cuda)
     before = fa_ops.bwd_launches
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                     window=window, lse=lse)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
-    want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                   window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
     assert _k4b_ok(got, want, dtype)
-    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                       window=window, lse=lse)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("fault, tile", [(1, 1), (2, 1), (1, -1), (3, 1)],
-                         ids=["1", "2", "1-last", "3-lse"])
+@pytest.mark.parametrize("case", K4B_KV_CASES)
+def test_flash_attention_bwd_kv_len_rows_past_are_zero(cuda, case):
+    """The dK and dV rows of the keys at or past a row's kv_len are
+    exactly 0 (the plain backward's are), in the tile that straddles it
+    and in the tiles past it.  In bfloat16, a batch row with one live key
+    has dS = 0 exactly (its Delta is the same tensor-core sum as dP), so
+    its dQ and that key's dK are exactly 0, as in exact arithmetic."""
+    q, k, v, o, lse, do, kw = _k4b_inputs(case, cuda)
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    _, wk, wv = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for bi, n in enumerate(kw["kv_len"].tolist()):
+        for got, want in ((dk, wk), (dv, wv)):
+            assert torch.equal(want[bi, n:], torch.zeros_like(want[bi, n:]))
+            assert torch.equal(got[bi, n:], want[bi, n:])
+        assert dv[bi, :n].abs().max().item() > 0
+        if n == 1 and q.dtype == torch.bfloat16:
+            assert dq[bi].count_nonzero().item() == 0
+            assert dk[bi, 0].count_nonzero().item() == 0
+
+
+@pytest.mark.parametrize("fault, tile", [(1, 1), (2, 1), (1, -1), (3, 1),
+                                         (4, 0)],
+                         ids=["1", "2", "1-last", "3-lse", "4-kv_len"])
 def test_flash_attention_bwd_planted_faults_fail(cuda, fault, tile):
     """Key tile 1 or the last key tile dropped from the dK/dV loop, Delta
     left out of dS, or each row's lse read from the next row, fails the
     check above: gemma3-1b's two layer kinds in bfloat16 and the two
-    float32 cases."""
-    for case in (*K4B_CASES[:2], K4B_CASES[3], K4B_CASES[5]):
-        causal, window, dtype = case[6:]
-        q, k, v, o, lse, do = _k4b_inputs(case, cuda)
+    float32 cases.  kv_len ignored in the dK/dV walk fails it on every
+    kv_len case."""
+    cases = (K4B_KV_CASES if fault == 4 else
+             (*K4B_CASES[:2], K4B_CASES[3], K4B_CASES[5]))
+    for case in cases:
+        dtype = case[8]
+        q, k, v, o, lse, do, kw = _k4b_inputs(case, cuda)
         before = fa_ops.bwd_launches
         got = fa_ops.flash_attention_bwd_planted(
-            q, k, v, o, do, causal=causal, window=window, fault=fault,
-            tile=tile, lse=lse)
+            q, k, v, o, do, fault=fault, tile=tile, lse=lse, **kw)
         assert fa_ops.bwd_launches == before
-        want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                       window=window)
+        want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
         assert not _k4b_ok(got, want, dtype)
 
 
@@ -777,7 +824,7 @@ def test_flash_attention_autograd_launches_k4_and_k4b(cuda):
     """Through autograd on the card: one K4 launch forward (writing lse),
     one K4b launch backward, gradients equal to the kernel called directly
     (which, given no lse, has K4 write it first)."""
-    q, k, v, _, _, do = _k4b_inputs(K4B_CASES[2], cuda)
+    q, k, v, _, _, do, _ = _k4b_inputs(K4B_CASES[2], cuda)
     for t in (q, k, v):
         t.requires_grad_(True)
     before = (fa_ops.launches, fa_ops.bwd_launches)

@@ -336,11 +336,17 @@ def test_trainer_checkpoint_restart(tmp_path):
 
 
 def test_trainer_mesh_path_waits_for_parallel():
+    """The Trainer's mesh branch (DTensor through the model) and
+    ``manual_dp.build`` on a model axis above 1 (tensor and expert
+    parallelism need it) raise, naming that item of ROADMAP.md.
+    ``manual_dp.build`` itself is held to the JAX package in
+    tests/test_torch_parallel.py."""
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(NotImplementedError, match="mesh branch"):
         Trainer(tbuild(tc), opt.OptConfig(), TrainerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        manual_dp.build()
+    with pytest.raises(NotImplementedError, match="mesh branch"):
+        manual_dp.build(tbuild(tc), {"data": 2, "model": 2},
+                        opt.OptConfig(), {})
 
 
 # ---------------------------------------------------------------- faults

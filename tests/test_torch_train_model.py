@@ -21,6 +21,7 @@ Tolerances, float32:
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -134,37 +135,104 @@ def test_loss_takes_int32_targets_and_remat_keeps_values():
 
 
 # ---------------------------------------------------------------- trainer
-@pytest.mark.parametrize("micro", [1, 2])
-def test_trainer_history_vs_jax(micro):
+# (arch, microbatches); the gemma3-1b cases keep their earlier ids
+HISTORY_CASES = [
+    pytest.param("gemma3-1b", 1, id="1"),
+    pytest.param("gemma3-1b", 2, id="2"),
+    *(pytest.param(arch, micro, id=f"{arch}-{micro}")
+      for arch in ("whisper-tiny", "qwen2-vl-2b", "mamba2-780m")
+      for micro in (1, 2)),
+]
+
+
+def _history_batches(jc, tc, n, batch=4, seq=20):
+    """``n`` float32 training batches as numpy dicts: gemma3-1b's from the
+    corpus, as the launcher feeds them; the other families' from
+    ``shapes.train_batch_specs`` of both packages (equal arrays), whisper
+    with ragged ``enc_len`` and qwen2-vl with its three M-RoPE components
+    drawn apart (tests/test_torch_vlm.py), so that a microbatch that takes
+    the wrong rows of ``enc_len`` or ``positions`` shows."""
+    if jc.family == "dense":
+        corpus = jdata.SyntheticCorpus(jc.vocab, seed=2)
+        toks = [corpus.batch(i, batch, seq) for i in range(n)]
+        return [{"tokens": t[:, :-1], "targets": t[:, 1:]} for t in toks]
+    from test_torch_encdec import batch_arrays
+    from test_torch_vlm import _distinct_positions
+    out = []
+    for i in range(n):
+        nb = batch_arrays(jc, tc, seq, batch, seed=20 + i, train=True)
+        if jc.family == "encdec":
+            # ragged as chip_smoke.py's RAGGED_ENC_LEN (all, four fifths,
+            # seven fifteenths), but no row of one key: its cross-attention
+            # key gradient is 0 in exact arithmetic, so in float32 it is
+            # rounding noise alone, which AdamW scales up to whole steps on
+            # the small xattn/wk gradients (with 1 here, one element read
+            # 3.0e-4 after five steps); K4b's card tests hold that row to 0
+            e = jc.enc_seq
+            nb["enc_len"] = np.array([e, e * 4 // 5, e * 7 // 15, e // 3],
+                                     np.int32)
+        elif jc.family == "vlm":
+            nb["positions"] = _distinct_positions(batch, seq, seed=i)
+        out.append(nb)
+    return out
+
+
+@pytest.mark.parametrize("arch,micro", HISTORY_CASES)
+def test_trainer_history_vs_jax(arch, micro):
     """Five ``Trainer.fit`` steps from the same params on the same batches:
-    the same history (loss, grad norm at every step) and parameters."""
-    jc, tc, jm, tm, jp, tp = _pair("gemma3-1b", seed=5)
-    corpus = jdata.SyntheticCorpus(jc.vocab, seed=2)
-    toks = [corpus.batch(i, 4, 20) for i in range(5)]
+    the same history (loss, grad norm at every step) and parameters, for
+    every family that trains on one card, with 1 and 2 microbatches (2
+    splits ``positions`` (3, B, S) on dim 1, as the JAX trainer does)."""
+    jc, tc, jm, tm, jp, tp = _pair(arch, seed=5)
+    batches = _history_batches(jc, tc, 5)
     ocfg = dict(lr=5e-3, warmup_steps=2, total_steps=50)
     jtr = JTrainer(jm, jopt.OptConfig(**ocfg), JTrainerConfig(
         steps=5, microbatches=micro, log_every=1, donate=False))
     jp, js, jh = jtr.fit(jp, jopt.init(jp), (
-        {"tokens": jnp.asarray(t[:, :-1]), "targets": jnp.asarray(t[:, 1:])}
-        for t in toks), resume=False)
+        {k: jnp.asarray(v) for k, v in b.items()} for b in batches),
+        resume=False)
     tr = Trainer(tm, opt.OptConfig(**ocfg), TrainerConfig(
         steps=5, microbatches=micro, log_every=1))
     tp, ts, th = tr.fit(tp, opt.init(tp.tree()), (
-        {"tokens": torch.tensor(t[:, :-1]), "targets": torch.tensor(t[:, 1:])}
-        for t in toks), resume=False)
+        {k: torch.tensor(v) for k, v in b.items()} for b in batches),
+        resume=False)
     assert [h["step"] for h in th] == [h["step"] for h in jh] == \
         [1, 2, 3, 4, 5]
     for a, b in zip(th, jh):
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
     want = T.leaves(convert.port_layout(tc, jax.tree.map(np.asarray, jp)))
-    for a, b in zip(T.leaves(tp.tree()), want):
+    got = T.leaves(tp.tree())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a), b, atol=1e-4, rtol=0)
     for a, b in zip(T.leaves((ts.mu, ts.nu)),
                     T.leaves((convert.port_layout(tc, jax.tree.map(
                         np.asarray, js.mu)), convert.port_layout(
                             tc, jax.tree.map(np.asarray, js.nu))))):
         np.testing.assert_allclose(_np(a), b, atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-2b"])
+def test_train_cli_cannot_feed_encdec_or_vlm(arch, tmp_path):
+    """A reference quirk, pinned on both sides: the JAX package's training
+    launcher and the port's feed only ``tokens`` and ``targets``, so on
+    the encdec and vlm families both fail with the same ``KeyError`` (the
+    first input the model reads that the launcher does not feed); these
+    families train through ``Trainer`` with ``shapes`` batches."""
+    from repro.launch import train as jlaunch
+    argv = ["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--ckpt-every", "0", "--max-restarts", "0"]
+    errs = []
+    for main, extra in ((jlaunch.main, []), (tlaunch.main,
+                                             ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            main(argv + ["--ckpt-dir", str(tmp_path / str(len(errs)))]
+                 + extra)
+        # the JAX error also carries a note on its filtered traceback
+        errs.append(re.findall(r"KeyError: '(\w+)'", str(exc.value)))
+    missing = "enc_frames" if arch == "whisper-tiny" else "img_embeds"
+    assert errs == [[missing], [missing]]
 
 
 def test_microbatches_accumulate_in_float32():
