@@ -161,6 +161,21 @@ and nothing of the JAX package ``repro``.  Phases:
      fall, and on one step the int8 codes read back give the mean and
      err' = g + err - mean bit for bit for every leaf; ms a step in turns
      with the plain ``Trainer`` step;
+  5i. (run after phase 7's first profiles, where the earlier phases'
+     models are freed) the Trainer's mesh branch: gemma3-1b at full
+     width through
+     ``Trainer(mesh=launch.mesh.make_host_mesh())`` with FSDP on a
+     one-rank NCCL (data 1, model 1) mesh (every parameter, moment and
+     batch entry a DTensor), phase 5d's batch shape, 6 steps in turns
+     with the plain ``Trainer`` from the same weights on the same batch:
+     every loss within MESH_LOSS_REL of the plain step's, the loss must
+     fall, K4 must launch 52 and K4b 26 times a step (as on the plain
+     step: a fallback to the plain attention would count 0), and every
+     parameter and moment must be a DTensor with the rules' placements;
+     ms a step, tokens/s and peak memory of both in turns, and one
+     profiled step of each (kernels, busy ms, idle share), beside the
+     card's name and power limit.  K4's and K4b's entries of the
+     ``kernels`` line carry the mesh steps' launches (``mesh_launches``);
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
@@ -405,6 +420,16 @@ FAMILY_GRAD_REL = 1e-4
 # on a one-device NCCL group at phase 5d's width and batch: MANUAL_DP_STEPS
 # steps, then steps in turns with phase 5d's plain Trainer step
 MANUAL_DP_STEPS = 4
+# Phase 5i.  The Trainer's mesh branch: gemma3-1b at phase 5d's width and
+# batch through Trainer(mesh=make_host_mesh(), fsdp=True) on a one-rank
+# NCCL (data 1, model 1) mesh, MESH_STEPS steps in turns with the plain
+# Trainer from the same weights on the same batch; each step's loss
+# within MESH_LOSS_REL relative of the plain step's (bfloat16: the same
+# kernels, but the vocabulary's log-sum-exp and the gradient reductions
+# in another order); K4 and K4b launched as on the plain step
+# (K4_PER_LAYER_STEP, K4B_PER_LAYER_STEP a layer)
+MESH_STEPS = 6
+MESH_LOSS_REL = 2e-3
 
 
 def log(*a):
@@ -2538,6 +2563,131 @@ def phase_manual_dp(dev):
     torch.cuda.empty_cache()
 
 
+def phase_mesh_trainer(dev):
+    """Phase 5i: gemma3-1b at full width through ``Trainer(mesh=...)`` (the
+    mesh from ``launch/mesh.make_host_mesh`` on a one-rank NCCL group with
+    an in-process store, FSDP on: every parameter, moment and batch entry
+    a DTensor), phase 5d's shape, MESH_STEPS steps on one
+    ``train_batch_specs`` batch in turns with the plain ``Trainer`` from
+    the same weights.  Fails unless every step's loss is within
+    MESH_LOSS_REL of the plain step's, the loss falls, K4 and K4b launch
+    as on the plain step (counted with the counters zeroed before each
+    mesh step and read after it), and every parameter and moment is a
+    DTensor with the rules' placements.  Then ms a step, tokens/s and peak
+    memory of both in turns, and one profiled step of each.  Returns the
+    mesh steps' (K4, K4b) launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import card_line, configs
+    from repro_torch.configs import shapes
+    from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as T
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        torch.cuda.empty_cache()
+        mesh = make_host_mesh()
+        cfg = configs.get_config(TRAIN_ARCH)
+        model = build_model(cfg)
+        ocfg = opt.OptConfig(lr=3e-3, warmup_steps=1, total_steps=20)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 shapes.train_batch_specs(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                          rng=np.random.default_rng(2)
+                                          ).items()}
+        state = {}
+        for name in ("mesh", "plain"):
+            params = model.init(torch.Generator(device=dev).manual_seed(2))
+            state[name] = [params, opt.init(params.tree())]
+        tr = Trainer(model, ocfg, TrainerConfig(fsdp=True), mesh=mesh)
+        steps = {"mesh": tr.build_step(batch),
+                 "plain": Trainer(model, ocfg, TrainerConfig()).build_step()}
+
+        def run(name):
+            params, ost, m = steps[name](*state[name], batch)
+            state[name] = [params, ost]
+            return m
+        losses = {"mesh": [], "plain": []}
+        counts = {"mesh": [], "plain": []}
+        for _ in range(MESH_STEPS):
+            for name in ("mesh", "plain"):
+                k4.launches = k4.bwd_launches = 0
+                m = run(name)
+                torch.cuda.synchronize()
+                counts[name].append((k4.launches, k4.bwd_launches))
+                losses[name].append(float(m["loss"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                   losses["plain"])]
+        want = (K4_PER_LAYER_STEP * cfg.n_layers,
+                K4B_PER_LAYER_STEP * cfg.n_layers)
+        places = dict(zip((n for n, _ in T.flatten_with_names(
+            state["mesh"][0].tree())), T.leaves_like(
+                tr.param_placements(), state["mesh"][0].tree())))
+        ost = state["mesh"][1]
+        misplaced = [n for key, tree in (("params", state["mesh"][0].tree()),
+                                         ("mu", ost.mu), ("nu", ost.nu))
+                     for n, v in T.flatten_with_names(tree)
+                     if not (isinstance(v, DTensor)
+                             and list(v.placements) == list(places[n]))]
+        log(f"[5i] Trainer(mesh=make_host_mesh()) on one NCCL rank (mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, fsdp), "
+            f"{cfg.name} at full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"losses {[round(x, 5) for x in losses['mesh']]}, plain "
+            f"{[round(x, 5) for x in losses['plain']]}; largest relative "
+            f"difference {max(rel):.3e} (limit {MESH_LOSS_REL}); (K4, K4b) "
+            f"a step {counts['mesh']} (plain {counts['plain']}, want "
+            f"{want}); {len(places) * 3 - len(misplaced)} of "
+            f"{len(places) * 3} parameters and moments DTensors with the "
+            f"rules' placements")
+        if max(rel) > MESH_LOSS_REL or not losses["mesh"][-1] < \
+                losses["mesh"][0]:
+            raise AssertionError(f"mesh trainer losses {losses}")
+        if any(c != want for c in counts["mesh"] + counts["plain"]):
+            raise AssertionError(f"mesh trainer launches {counts}")
+        if misplaced:
+            raise AssertionError(f"mesh trainer placements: {misplaced[:5]}")
+        card = card_line()
+        times = {"mesh": [], "plain": []}
+        peaks = {"mesh": [], "plain": []}
+        for name in ("mesh", "plain", "plain", "mesh") * 2:
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run(name)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            peaks[name].append((peak, peak - start))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        for name in ("mesh", "plain"):
+            med = statistics.median(times[name])
+            log(f"[5i] {name} step ({card}): median {med:.3f} ms "
+                f"{[round(x, 3) for x in times[name]]}, "
+                f"{tokens / med * 1e3:.0f} tokens/s; peak "
+                f"{max(p for p, _ in peaks[name]) / 1e9:.2f} GB allocated "
+                f"(both trainers' state resident), "
+                f"{max(a for _, a in peaks[name]) / 1e9:.2f} GB above the "
+                f"step's start")
+        for name in ("mesh", "plain"):
+            n_k, busy, wall, names, top = profile_step(lambda: run(name))
+            log(f"[5i] profiled {name} step ({card}): {n_k} device kernels, "
+                f"busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms wall "
+                f"(idle share {1 - busy / wall:.3f}, profiler on); most "
+                f"device time {[(n[:50], round(us, 1)) for n, us in top]}")
+        del state, steps, tr, batch
+        total = tuple(sum(c[i] for c in counts["mesh"]) for i in (0, 1))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return total
+
+
 def match_batch_earlier(batch, tables):
     """The matching stage as it ran before the first-match form: the
     (N, C) kernel, then seven PyTorch ops (mask by valid, any, cast,
@@ -3281,6 +3431,16 @@ def main() -> int:
     log(f"[7] the profiled allreduce tick ran "
         f"{sum(n.steps for n in comm.nodes) - steps0} NIC steps")
     del engine, prompt, state, train_step
+    # the Trainer's mesh branch, counted on its own (the counters zeroed
+    # before each of its steps): here, where the earlier phases' models
+    # are freed (two gemma3-1b trainers' state and a step's activations
+    # need about 50 GB), and before the profiler has traced the largest
+    # steps (after mamba2-780m's it saw no kernel)
+    mesh = dict(zip(("flash_attention", "flash_attention_bwd"),
+                    phase_mesh_trainer(dev)))
+    for entry in kernels:
+        if entry["name"] in mesh:
+            entry["mesh_launches"] = mesh[entry["name"]]
     for arch, prompt_len, _, _ in FAMILIES:
         profile_family(dev, arch, prompt_len)
     for arch, prompt_len, _ in MODAL_FAMILIES:

@@ -26,6 +26,16 @@ key length of whisper's cross-attention (``blockwise_attention``'s
 j < kv_len[b].  K4 and K4b both take it as a device pointer, on top of
 the causal and window masks; K4b's dK and dV rows of the keys past a
 row's length are exactly 0, as the plain backward's are.
+
+On the mesh path q, k and v are ``DTensor``s, split by batch over the
+data axes and by heads over ``model``.  ``flash_attention`` then runs K4
+(and K4b through autograd) on each rank's local shards and places the
+output like q; no input is gathered.  Where ``model`` splits q's heads
+but not k's (KV heads that do not divide the axis: k and v are whole on
+every rank), each rank attends with the KV heads of its own query heads,
+global query head h with KV head h // (H / KV), and its dk and dv are
+partial sums over the axis.  ``_forward`` and ``_backward`` only ever see
+local tensors: a DTensor there raises.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref as _ref
+from repro_torch.parallel import dtensor as dt
 
 launches = 0
 bwd_launches = 0
@@ -127,6 +138,14 @@ def _check_cuda(q, k, v) -> None:
                          f"on CUDA (bfloat16, float32)")
 
 
+def _local_only(*ts) -> None:
+    """The launchers take local tensors: a DTensor's device and data
+    pointer are its shard's, and it must never reach the plain version."""
+    if any(dt.is_dt(t) for t in ts):
+        raise TypeError("flash_attention: a DTensor reached the launcher; "
+                        "call flash_attention, which runs on local shards")
+
+
 class _FlashAttention(torch.autograd.Function):
     """K4 forward (with lse), K4b backward (from the saved lse)."""
 
@@ -154,13 +173,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query i and key j are at absolute positions i and j (from 0).  causal
     keeps j <= i; window > 0 keeps j > i - window; ``kv_len`` (B,) keeps
     j < kv_len[b].  Scale 1/sqrt(D).  Differentiable in q, k and v
-    (backward: ``flash_attention_bwd``)."""
+    (backward: ``flash_attention_bwd``).  DTensor q, k, v run on their
+    local shards (module docstring)."""
+    if dt.is_dt(q):
+        return _flash_attention_dtensor(q, k, v, causal, window, kv_len)
     _check_args(q, k, v)
     kv_len = _check_kv_len(q, k, kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, kv_len)
     return _forward(q, k, v, causal, window, kv_len)
+
+
+def _flash_attention_dtensor(q, k, v, causal: bool, window: int, kv_len):
+    """``flash_attention`` of DTensor q, k, v on each rank's local shards;
+    the output placed like q.  ``kv_len``: a DTensor split like q's
+    batch."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_of
+    q, k, v = dt.settle(q), dt.settle(k), dt.settle(v)
+    if not (dt.is_dt(k) and dt.is_dt(v)) or k.placements != v.placements \
+            or k.device_mesh != q.device_mesh:
+        raise ValueError("flash_attention: DTensor q needs DTensor k and v "
+                         "placed alike on q's mesh")
+    _check_args(q, k, v)
+    mesh, place = q.device_mesh, tuple(q.placements)
+    for pq, pk in zip(place, k.placements):
+        if pq.is_shard(0) != pk.is_shard(0) or pq.is_shard(1) or \
+                pk.is_shard(1) or (pk.is_shard(2) and not pq.is_shard(2)):
+            raise ValueError(f"flash_attention: q placed {place} and k "
+                             f"placed {tuple(k.placements)} do not fit")
+    (_, _, hl, _), qoff = local_of(q.shape, mesh, place)
+    (_, _, kvl, _), koff = local_of(k.shape, mesh, k.placements)
+    group = q.shape[2] // k.shape[2]
+    ql = q.to_local()
+    kv_grad = dt.grad_placements(k, place) if (k.requires_grad
+                                               or v.requires_grad) else None
+    kl = k.to_local(grad_placements=kv_grad)
+    vl = v.to_local(grad_placements=kv_grad)
+    # the KV heads of this rank's query heads, as local indices into kl:
+    # where k is split like q they are kl's own heads; where k is whole,
+    # one KV head per query head (GQA group 1)
+    need = [(qoff[2] + i) // group - koff[2] for i in range(hl)]
+    if need != [i // group for i in range(hl)] or hl // group != kvl:
+        idx = torch.tensor(need, device=kl.device)
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    if kv_len is not None:
+        kv_len = dt.settle(kv_len)
+        if not dt.is_dt(kv_len) or [p.is_shard(0) for p in
+                                    kv_len.placements] != \
+                [p.is_shard(0) for p in place]:
+            raise ValueError("flash_attention: kv_len must be a DTensor "
+                             "split like q's batch")
+        kv_len = kv_len.to_local()
+    out = flash_attention(ql, kl, vl, causal=causal, window=window,
+                          kv_len=kv_len).contiguous()   # a no-op for K4's
+    return DTensor.from_local(out, mesh, place, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -179,6 +251,7 @@ def _forward(q, k, v, causal: bool, window: int, kv_len=None,
     """The output, or (output, lse) with ``with_lse``; ``kv_len`` as
     ``_check_kv_len`` returns it."""
     global launches
+    _local_only(q, k, v)
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     if q.device.type == "cpu":
@@ -274,6 +347,7 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
     """K4b or the plain backward; ``kv_len`` as ``_check_kv_len`` returns
     it."""
     global bwd_launches
+    _local_only(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and do must have q's shape")
     if not (o.device == do.device == q.device):

@@ -18,8 +18,9 @@ With ``--spin-ingest`` the loop issues step t, then the ingest of batch
 t + 1 behind it on the device, and measures the paper's overlap ratio as
 the JAX launcher does: the time to wait for the step's loss (T_MM), then
 for the next batch (T_Poll), R = T_MM / (T_MM + T_Poll).  Nothing inside
-the step waits for the device.  The mesh (pjit) path waits for the
-Trainer's mesh branch (ROADMAP.md, "Modules to port").
+the step waits for the device.  Like the JAX launcher it has no mesh
+flag: the mesh path is ``Trainer(mesh=...)`` with a ``DeviceMesh`` from
+``launch/mesh.py``, driven from a script that starts the process group.
 """
 from __future__ import annotations
 

@@ -25,6 +25,14 @@ Causal calls need none: a padded key lies past every query.
 
 Unlike the JAX functions, ``fill_kv_cache`` and ``attend_decode`` write
 the cache in place and return the same tensors.
+
+On the mesh path x and the projections are DTensors: q, k and v come out
+split by batch over the data axes and by heads over ``model`` where the
+sharding rules split ``wq`` (``wk``, ``wv``), so each rank reshapes and
+rotates its local heads, and K4 runs on them (``fa_ops.flash_attention``
+takes DTensors; where the KV heads do not divide ``model``, ``wk`` and
+``wv`` are whole and each rank attends with its query heads' KV heads).
+Whisper's ``enc_len`` comes split over the data axes like the batch.
 """
 from __future__ import annotations
 

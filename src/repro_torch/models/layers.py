@@ -6,6 +6,13 @@ parameter trees (``{"scale"}``, ``{"up", "gate", "down"}``, ...), so the
 functions here read them the same way.  ``apply_mrope`` (qwen2-vl's
 M-RoPE) serves the vlm family and ``sinusoid_positions`` (a numpy copy of
 the JAX package's table) whisper's encoder.
+
+On the mesh path (``DTensor`` activations and parameters) the norms and
+RoPE run on each rank's local shards (``parallel.dtensor.local_call``:
+they work along dims no mesh dim splits), a plain position tensor is
+placed by the activations' batch first, the embedding of a vocabulary
+split over ``model`` is summed over that axis, and the logits' lane mask
+is replicated onto the logits' mesh.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import dtensor as dt
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -47,11 +55,16 @@ def rmsnorm_init(d: int, dtype, device) -> nn.ParameterDict:
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     """Computed in float32 and cast back to ``x``'s dtype."""
+    return dt.local_call(_rmsnorm, x, p["scale"], eps, like=x)
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
     orig = x.dtype
     x = x.to(torch.float32)
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * p["scale"].to(torch.float32)).to(orig)
+    return (x * scale.to(torch.float32)).to(orig)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -72,6 +85,11 @@ def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """Half-split rotation.  x: (B, S, H, D); positions: (B, S) int."""
+    return dt.local_call(_apply_rope, x, dt.place_like(positions, x), theta,
+                         like=x)
+
+
+def _apply_rope(x, positions, theta):
     freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
     angles = positions[..., None].to(torch.float32) * freqs     # (B,S,D/2)
     return _rotate(x, angles)
@@ -114,6 +132,12 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if sum(sections) != d // 2:
         raise ValueError(f"apply_mrope: sections {sections} do not sum to "
                          f"head_dim / 2 = {d // 2}")
+    return dt.local_call(_apply_mrope, x, dt.place_like(positions, x, 1),
+                         theta, sections, like=x)
+
+
+def _apply_mrope(x, positions, theta, sections):
+    d = x.shape[-1]
     freqs = _rope_freqs_on(d, float(theta), x.device)
     comp = _mrope_components(sections, x.device)
     pos = positions.to(torch.float32)[comp]                   # (D/2, B, S)
@@ -181,7 +205,9 @@ def embed_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.to(torch.int64), p["tok"])
+    """Rows of ``tok``; with the vocabulary split over ``model`` each rank
+    looks up its rows and the partial embeddings are summed."""
+    return dt.settle(F.embedding(tokens.to(torch.int64), p["tok"]))
 
 
 def lm_logits(p, x: torch.Tensor, tie: bool, out_dtype=torch.float32,
@@ -191,6 +217,6 @@ def lm_logits(p, x: torch.Tensor, tie: bool, out_dtype=torch.float32,
     logits = (x @ w).to(out_dtype)
     v = w.shape[-1]
     if true_vocab and true_vocab < v:
-        lane = torch.arange(v, device=logits.device)
-        logits = torch.where(lane < true_vocab, logits, -1e9)
+        lane = torch.arange(v, device=logits.device) < true_vocab
+        logits = torch.where(dt.place_like(lane, logits, None), logits, -1e9)
     return logits

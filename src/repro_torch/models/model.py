@@ -55,6 +55,17 @@ q/k/v and output projections and the MLP's up, gate and down) and
 recomputes the rest in the backward: the norms, RoPE, GeGLU and, on the
 card, attention, so K4 runs twice per layer and step, in the forward and
 in the recompute before K4b.  Remat changes no value.
+
+On the mesh path (DTensor parameters and batch, ``Trainer(mesh=...)``)
+the positions, masks and aux zero made here are placed like the batch;
+each layer's output (a partial sum over ``model`` after a row-split
+product) is reduced before it joins the residual stream, which stays
+split by batch only;
+parameters that FSDP splits over a data axis are gathered per block,
+inside its checkpoint (so the gather is redone in the recompute, as
+ZeRO-3 does); the loss reduces its log-sum-exp over the mesh dims that
+split the vocabulary; and "dots" saves the DTensor products as it saves
+plain ones.
 """
 from __future__ import annotations
 
@@ -74,6 +85,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.parallel import dtensor as D
 
 Cache = List[Dict[str, torch.Tensor]]
 ATTENTION = ("attn", "local")
@@ -110,7 +122,10 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
     """One block over the full sequence.  Returns (h, the MoE aux loss or
     None).  With ``cache`` (prefill) the block's K/V, or its recurrent
     state, are written into it with decode-compatible addressing, and a
-    cross-attention's keys and values over ``enc_out`` too."""
+    cross-attention's keys and values over ``enc_out`` too.  DTensor
+    parameters split over a data axis (FSDP) are gathered first."""
+    if D.is_dt(p["norm1"]["scale"]):
+        p = D.gather_data(p)
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
     if kind in ATTENTION:
         if cache is not None:
@@ -128,7 +143,7 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
                 cache[k].copy_(v)
         else:
             y = apply(p[kind], cfg, x)
-    h = h + y
+    h = h + D.settle(y)
     if "xattn" in p:
         xx = L.rmsnorm(p["normx"], h, cfg.norm_eps)
         y, (xk, xv) = A.attend_train(p["xattn"], cfg, xx, None, kind="cross",
@@ -137,14 +152,14 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
         if cache is not None:
             cache["xk"].copy_(xk)
             cache["xv"].copy_(xv)
-        h = h + y
+        h = h + D.settle(y)
     if "norm2" not in p:                           # mamba2 blocks: no FFN
         return h, None
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
     if "moe" in p:
         y, aux = M.moe_apply(p["moe"], cfg, x2)
         return h + y, aux
-    return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind), None
+    return h + D.settle(L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)), None
 
 
 def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
@@ -218,6 +233,31 @@ def _save_dots(ctx, op, *args, **kwargs):
         else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[target] over the last dim, float32.  Where a
+    mesh dim of more than one rank splits the vocabulary of DTensor
+    logits it is computed as max, log-sum-exp and the target's logit, each
+    reduced over those mesh dims, so that no rank gathers the logits
+    whole; otherwise row by row on each rank's local rows."""
+    if not D.is_dt(logits):
+        return _nll_rows(logits, targets)
+    v = logits.dim() - 1
+    if not any(p.is_shard(v) and logits.device_mesh.size(i) > 1
+               for i, p in enumerate(logits.placements)):
+        return D.local_call(_nll_rows, logits, targets, like=logits,
+                            out_placements=D.batch_placements(logits))
+    top = D.settle(logits.detach().amax(dim=-1, keepdim=True))
+    z = logits - top
+    lse = torch.log(D.settle(torch.exp(z).sum(dim=-1)))
+    picked = D.settle(torch.gather(z, -1, targets[..., None]))[..., 0]
+    return lse - picked
+
+
+def _nll_rows(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None])[..., 0]
+
+
 # ==================================================================== model
 @dataclasses.dataclass
 class Model:
@@ -260,12 +300,13 @@ class Model:
         """Token embeddings, with vlm's image embeddings prepended.
         Returns (h, positions): (B, S) positions 0..S-1, or vlm's (3, B, S)
         M-RoPE positions from the batch."""
-        h = L.embed_tokens(params.embed, batch["tokens"])
+        h = L.embed_tokens(D.gather_data(params.embed), batch["tokens"])
         if self.cfg.family == "vlm":
             h = torch.cat([batch["img_embeds"].to(h.dtype), h], dim=1)
             return h, batch["positions"]
         b, s = h.shape[:2]
-        return h, torch.arange(s, device=h.device).expand(b, s)
+        return h, D.place_like(torch.arange(s, device=h.device).expand(b, s),
+                               h)
 
     def _encode(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Optional[torch.Tensor]:
@@ -277,18 +318,22 @@ class Model:
             return None
         dt = L.dtype_of(cfg.dtype)
         h = batch["enc_frames"].to(dt)
-        h = h + L.sinusoid_on(h.shape[1], cfg.d_model, dt, h.device)[None]
+        h = h + D.place_like(
+            L.sinusoid_on(h.shape[1], cfg.d_model, dt, h.device)[None], h,
+            None)
         for p in params.encoder:
+            p = D.gather_data(p)
             x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-            h = h + A.attend_encoder(p["attn"], cfg, x)
+            h = h + D.settle(A.attend_encoder(p["attn"], cfg, x))
             x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
-            h = h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)
-        return h
+            h = h + D.settle(L.mlp_apply(p["mlp"], x2, cfg.mlp_kind))
+        return D.reduced_grad(h)         # no final norm reduces it
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
-        return L.lm_logits(params.embed, h, cfg.tie_embeddings,
+        return L.lm_logits(D.gather_data(params.embed), h,
+                           cfg.tie_embeddings,
                            out_dtype=L.dtype_of(cfg.logits_dtype),
                            true_vocab=cfg.vocab)
 
@@ -316,7 +361,8 @@ class Model:
         h, positions = self._embed_inputs(params, batch)
         enc_out = self._encode(params, batch)
         enc_len = batch.get("enc_len") if enc_out is not None else None
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = D.place_like(torch.zeros((), dtype=torch.float32,
+                                       device=h.device), h, None)
         for p, kind in zip(params.blocks, self.kinds):
             h, a = self._block(p, kind, h, positions, enc_out, enc_len)
             if a is not None:
@@ -336,15 +382,17 @@ class Model:
         if self.cfg.family == "vlm":
             n_img = batch["img_embeds"].shape[1]
             targets = F.pad(targets, (n_img, 0))
-            mask = (torch.arange(targets.shape[1], device=targets.device)
-                    >= n_img).to(torch.float32).expand(targets.shape)
+            mask = D.place_like(
+                (torch.arange(targets.shape[1], device=targets.device)
+                 >= n_img).to(torch.float32).expand(targets.shape), targets)
         else:
             mask = batch.get("loss_mask")
             if mask is None:
-                mask = torch.ones(targets.shape, dtype=torch.float32,
-                                  device=targets.device)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+                mask = D.place_like(torch.ones(targets.shape,
+                                               dtype=torch.float32,
+                                               device=targets.device),
+                                    targets)
+        nll = _nll(logits.to(torch.float32), targets)
         denom = torch.clamp(mask.sum(), min=1.0)
         ce = (nll * mask).sum() / denom
         loss = ce + aux

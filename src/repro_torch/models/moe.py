@@ -10,7 +10,10 @@ the results are combined with the router weights.  An assignment of rank
 C or more in its expert drops (its token keeps the other experts' share,
 with no renormalisation).  The expert count is zero-padded to a multiple
 of 16 (padded experts receive no tokens: the router scores real experts
-only).  Shared experts run densely for every token.
+only).  Shared experts run densely for every token.  On the mesh path
+(DTensor x) the dispatch runs as pjit partitions it: over the global
+tokens on every rank, with each rank's experts (split over ``model``)
+over their slots.
 
 Where the port differs in form:
 * A dropped assignment's slot is one past the end of the buffer, as in
@@ -34,9 +37,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import dtensor as dt
 
 EP_PAD_MULTIPLE = 16
 FLOAT32 = frozenset({"router"})       # leaves held in float32 at any dtype
@@ -110,11 +115,38 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     prefill); decode passes n_experts, which drops nothing."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
+    if dt.is_dt(x):
+        return _moe_apply_mesh(p, cfg, x, capacity_factor)
     b, s, d = x.shape
-    t, k, e = b * s, cfg.top_k, cfg.n_experts
-    e_pad = p["up"].shape[0]
-    xt = x.reshape(t, d)
-    probs, top_w, top_e = route(p, cfg, xt)
+    xt = x.reshape(b * s, d)
+    y, aux = _routed(cfg, xt, p["router"], capacity_factor,
+                     lambda buf: _experts(buf, p["gate"], p["up"],
+                                          p["down"]))
+    if "shared" in p:
+        y = y + _shared(p["shared"], xt)
+    return y.reshape(b, s, d), aux
+
+
+def _experts(buf, gate, up, down):
+    """The expert FFNs over their slots: buf (E, C, d) -> (E, C, d)."""
+    h = torch.bmm(buf, gate)
+    u = torch.bmm(buf, up)
+    act = (F.silu(h.to(torch.float32)) * u.to(torch.float32)).to(buf.dtype)
+    return torch.bmm(act, down)
+
+
+def _shared(sp, xt):
+    """The shared experts, dense over every token."""
+    return (F.silu(xt @ sp["gate"]) * (xt @ sp["up"])) @ sp["down"]
+
+
+def _routed(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
+            capacity_factor: float, experts):
+    """The routed experts over tokens xt (T, d): (y (T, d), aux).
+    ``experts`` maps the dispatch buffer (E_pad, C, d) to its outputs."""
+    t, d = xt.shape
+    k, e = cfg.top_k, cfg.n_experts
+    probs, top_w, top_e = route({"router": router}, cfg, xt)
 
     # load-balancing auxiliary loss (Switch-style): the share of
     # assignments each expert got, against its mean router probability
@@ -122,19 +154,16 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
         torch.float32) / t
     aux = cfg.router_aux_coef * e * torch.sum(density / k * probs.mean(0))
 
+    e_pad = padded_experts(e)
     capacity = capacity_of(cfg, t, capacity_factor)
     order, keep, slot = dispatch(top_e, e_pad, capacity)
     st = torch.div(order, k, rounding_mode="floor")      # sorted tokens
-    buf = x.new_zeros((e_pad * capacity + 1, d))
+    buf = xt.new_zeros((e_pad * capacity + 1, d))
     buf[slot] = xt[st]
-    buf = buf[:-1].view(e_pad, capacity, d)
+    out = experts(buf[:-1].view(e_pad, capacity, d)).reshape(
+        e_pad * capacity, d)
 
-    h = torch.bmm(buf, p["gate"])
-    u = torch.bmm(buf, p["up"])
-    act = (F.silu(h.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
-    out = torch.bmm(act, p["down"]).view(e_pad * capacity, d)
-
-    sw = top_w.reshape(-1)[order].to(x.dtype)
+    sw = top_w.reshape(-1)[order].to(xt.dtype)
     y_sorted = torch.where(keep[:, None],
                            out[torch.clamp(slot, max=e_pad * capacity - 1)],
                            0) * sw[:, None]
@@ -144,9 +173,37 @@ def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
     y = y_tk[:, 0]
     for j in range(1, k):
         y = y + y_tk[:, j]
+    return y, aux
 
+
+def _moe_apply_mesh(p, cfg: ModelConfig, x, capacity_factor: float):
+    """``moe_apply`` of a DTensor x, as pjit partitions it: the routing,
+    the capacity, the stable sort and the dropped pairs over the global
+    tokens (gathered whole on every rank, which all compute the same
+    dispatch), each rank's experts (split over ``model``) over their
+    slots, and the outputs gathered back; the shared experts as a dense
+    MLP on x."""
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    b, s, d = x.shape
+    xt = dt.whole(x).to_local().reshape(b * s, d)
+    gate = p["gate"]
+    mine = tuple(gate.placements)
+
+    def experts(buf):
+        # each rank's slots of its experts; the gradient of the buffer is
+        # gathered back over the experts' split
+        buf = DTensor.from_local(buf, mesh, rep, run_check=False
+                                 ).redistribute(placements=mine).to_local()
+        out = _experts(buf, gate.to_local(), p["up"].to_local(),
+                       p["down"].to_local())
+        return DTensor.from_local(out, mesh, mine, run_check=False
+                                  ).redistribute(placements=rep).to_local()
+
+    y, aux = _routed(cfg, xt, dt.whole(p["router"]).to_local(),
+                     capacity_factor, experts)
+    y = DTensor.from_local(y.reshape(b, s, d), mesh, rep, run_check=False
+                           ).redistribute(placements=x.placements)
     if "shared" in p:
-        sp = p["shared"]
-        hs = F.silu(xt @ sp["gate"]) * (xt @ sp["up"])
-        y = y + hs @ sp["down"]
-    return y.reshape(b, s, d), aux
+        y = y + dt.settle(_shared(p["shared"], x))
+    return y, DTensor.from_local(aux, mesh, rep, run_check=False)

@@ -13,7 +13,10 @@ element-wise passes), where the JAX package uses
 float32 results differ only in rounding.  Decode is one O(width) update
 of ``{"conv", "h"}``, in place.  The temporal block follows Griffin: a
 width-4 causal conv in front of the RG-LRU and a GeLU-gated linear branch
-multiplied into its output.  Casts follow the JAX package's: the gate
+multiplied into its output.  On DTensors the scan runs on each rank's
+local shards (it is per batch row and per width lane), the rest on
+DTensor's operators, with the LRU width split over ``model`` where the
+rules split it.  Casts follow the JAX package's: the gate
 biases are cast to the activations' dtype before the add, ``i * x`` goes
 to float32 after the product, and ``h`` is cast back before the gate.
 """
@@ -28,6 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import dtensor as dt
 
 _C = 8.0
 FLOAT32 = frozenset({"b_r", "b_i", "lam"})       # float32 at any dtype
@@ -58,9 +62,12 @@ def rglru_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
 
 
 def _gates(p, xb):
-    """(a, gated input), float32, for conv outputs xb (..., w)."""
-    r = torch.sigmoid(xb @ p["w_r"] + p["b_r"].to(xb.dtype))
-    i = torch.sigmoid(xb @ p["w_i"] + p["b_i"].to(xb.dtype))
+    """(a, gated input), float32, for conv outputs xb (..., w).  The gate
+    products take xb whole (gathered where ``model`` splits the width) by
+    ``w_r`` and ``w_i``'s columns, so no weight is gathered."""
+    xw = dt.unsplit(xb, -1)
+    r = torch.sigmoid(xw @ p["w_r"] + p["b_r"].to(xb.dtype))
+    i = torch.sigmoid(xw @ p["w_i"] + p["b_i"].to(xb.dtype))
     log_a = -_C * L.softplus(p["lam"]) * r.to(torch.float32)
     a = torch.exp(log_a)
     gated_x = (i * xb).to(torch.float32) * torch.sqrt(
@@ -98,7 +105,7 @@ def rglru_apply_train(p, cfg: ModelConfig, x: torch.Tensor,
     xb_raw = x @ p["w_x"]
     xb = _causal_conv(xb_raw, p["conv_w"], p["conv_b"])
     a, gx = _gates(p, xb)                                  # (B,S,w) f32
-    h = linear_scan(a, gx)
+    h = dt.local_call(linear_scan, a, gx, like=a)
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     out = (h.to(x.dtype) * gate) @ p["out"]
     if return_state:

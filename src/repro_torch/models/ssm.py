@@ -15,6 +15,7 @@ in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -24,6 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import dtensor as dt
 
 FLOAT32 = frozenset({"a_log", "dt_bias", "d_skip"})   # float32 at any dtype
 
@@ -143,26 +145,44 @@ def chunk_states(chunk_decay, s_local):
 
 def ssm_apply_train(p, cfg: ModelConfig, x: torch.Tensor,
                     return_state: bool = False):
-    """x: (B, S, d_model) -> (B, S, d_model) [, decode cache]."""
-    b, s, _ = x.shape
-    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    """x: (B, S, d_model) -> (B, S, d_model) [, decode cache].  On DTensors
+    the mixer between the two projections runs on each rank's local batch
+    rows (``in_proj`` is whole over ``model``, and every step of it is
+    per row); ``out_proj`` splits d_inner over ``model`` where the rules
+    do."""
     proj = x @ p["in_proj"]
+    y, tail, final = dt.local_call(
+        functools.partial(_mixer, cfg, return_state), proj,
+        p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"], p["d_skip"],
+        p["norm"], like=proj)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, {"conv": tail, "ssd": final}
+    return out
+
+
+def _mixer(cfg: ModelConfig, with_state: bool, proj, conv_w, conv_b,
+           dt_bias, a_log, d_skip, norm):
+    """The mixer of (B, S, in_proj width) projections: (the gated-norm
+    output (B, S, d_inner), and with ``with_state`` the conv's last K - 1
+    inputs and the final SSD state, else None twice)."""
+    b, s, _ = proj.shape
+    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     z, xbc_raw, dt_raw = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xbc = _causal_conv(xbc_raw, conv_w, conv_b)
     xs = xbc[..., :di].reshape(b, s, nh, cfg.ssm_head_dim)
     bmat = xbc[..., di:di + ns].to(torch.float32)
     cmat = xbc[..., di + ns:].to(torch.float32)
-    dt = L.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    dt = L.softplus(dt_raw.to(torch.float32) + dt_bias)
+    a = -torch.exp(a_log)
     y, final = ssd_chunked(xs, dt, a, bmat, cmat, cfg.ssm_chunk)
-    y = y + p["d_skip"][None, None, :, None] * xs.to(torch.float32)
-    y = y.reshape(b, s, di).to(x.dtype)
-    out = _gated_norm(y, z, p["norm"], cfg.norm_eps) @ p["out_proj"]
-    if return_state:
-        k = p["conv_w"].shape[0]
-        tail = F.pad(xbc_raw, (0, 0, k - 1, 0))[:, -(k - 1):]
-        return out, {"conv": tail, "ssd": final}
-    return out
+    y = y + d_skip[None, None, :, None] * xs.to(torch.float32)
+    y = y.reshape(b, s, di).to(proj.dtype)
+    out = _gated_norm(y, z, norm, cfg.norm_eps)
+    if not with_state:
+        return out, None, None
+    k = conv_w.shape[0]
+    return out, F.pad(xbc_raw, (0, 0, k - 1, 0))[:, -(k - 1):], final
 
 
 def ssm_decode_init(cfg: ModelConfig, batch: int, dtype, device

@@ -22,6 +22,15 @@ reciprocal), so that the codes, the error state and the mean are the JAX
 package's bit for bit on the CPU.  A tree's leaves are reduced together:
 one ``all_reduce(MAX)`` of their maxima and one int8 ``all_reduce(SUM)``
 of their codes, concatenated, per group.
+
+DTensor gradients (the manual data-parallel step on a model axis above
+1) are quantised as their local shards.  Inside the JAX package's
+partial-manual ``shard_map`` the model axis is automatic, so a leaf's
+scale is the maximum over the whole leaf: here the maxima are reduced
+over the gradients' other mesh dims (``model``) too, before the codes
+are taken; the int8 sum stays per data group, and each mean comes back
+as a DTensor placed like its gradient.  The error state is each rank's
+local shards.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ from typing import Any, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.parallel import dtensor as dt
 from repro_torch.train import tree as T
 
 
@@ -64,6 +75,16 @@ def _all_reduce(t: torch.Tensor, op, groups: Sequence) -> torch.Tensor:
     for g in groups:
         dist.all_reduce(t, op=op, group=g)
     return t
+
+
+def _model_groups(places) -> List:
+    """The groups of the mesh dims other than the data axes (``model``)
+    of the first DTensor gradient's mesh; [] without one."""
+    mesh = next((p[0] for p in places if p is not None), None)
+    if mesh is None:
+        return []
+    return [mesh.get_group(i) for i, name in
+            enumerate(mesh.mesh_dim_names or ()) if name not in dt.DATA_AXES]
 
 
 def quantize(g32: torch.Tensor, gmax: torch.Tensor, n: int
@@ -106,10 +127,14 @@ def compressed_pmean(grads, error_tree, groups: Sequence = (),
     if not gl:
         return grads, error_tree
     n = _size(groups)
+    places = [(g.device_mesh, g.placements) if dt.is_dt(g) else None
+              for g in gl]
+    max_groups = list(groups) + _model_groups(places)
     with torch.no_grad():
+        gl = [dt.settle(g).to_local() if dt.is_dt(g) else g for g in gl]
         g32 = [g.to(torch.float32) + e for g, e in zip(gl, el)]
         gmax = torch.stack([x.abs().max() for x in g32])
-        _all_reduce(gmax, dist.ReduceOp.MAX, groups)
+        _all_reduce(gmax, dist.ReduceOp.MAX, max_groups)
         if scale_of is not None:
             keys = list(scale_of)
             index = {k: i for i, k in enumerate(dict.fromkeys(keys))}
@@ -131,6 +156,9 @@ def compressed_pmean(grads, error_tree, groups: Sequence = (),
             part = total[off:off + q.numel()].view(q.shape)
             means.append(part.to(torch.float32) * s / div)
             off += q.numel()
+        means = [m if pl is None else
+                 DTensor.from_local(m, pl[0], pl[1], run_check=False)
+                 for m, pl in zip(means, places)]
     names = [name for name, _ in T.flatten_with_names(grads)]
     by_m, by_e = dict(zip(names, means)), dict(zip(names, new_err))
     return (T.map_with_names(lambda name, _: by_m[name], grads),

@@ -6,7 +6,8 @@ dir and atomically renamed (a crash mid-save never corrupts the latest
 checkpoint); <dir>/LATEST names the newest complete step.  Each leaf file
 holds the leaf's raw bytes as a flat uint8 array and the manifest its
 name (``jax.tree_util.keystr`` of its path), file, shape and dtype name,
-so the same tree saved by either package gives the same files.  bfloat16
+so the same tree saved by either package gives the same files (a tree
+of DTensors too: rank 0 writes each leaf whole).  bfloat16
 has no numpy dtype: its bytes are written through an int16 view under the
 name ``"bfloat16"`` and read back the same way, without ``ml_dtypes``.
 
@@ -28,8 +29,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.parallel import dtensor as dt
 from repro_torch.train import tree as T
 
 
@@ -46,13 +49,25 @@ def _as_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, tag: str = "state") -> str:
-    """Atomic save.  Returns the final checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic save.  Returns the final checkpoint path.  A tree with
+    DTensor leaves (the mesh path) is saved by every rank of their mesh
+    together: each such leaf is gathered whole and rank 0 writes every
+    file, so the files are those of the unsharded tree; the ranks meet at
+    a barrier after the write."""
+    named = T.flatten_with_names(tree)
+    sharded = any(dt.is_dt(leaf) for _, leaf in named)
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step-{step:08d}")
-    tmp = tempfile.mkdtemp(prefix=".tmp-ckpt-", dir=ckpt_dir)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=".tmp-ckpt-", dir=ckpt_dir)
     manifest = {"step": step, "tag": tag, "leaves": []}
     try:
-        for i, (name, leaf) in enumerate(T.flatten_with_names(tree)):
+        for i, (name, leaf) in enumerate(named):
+            if dt.is_dt(leaf):
+                leaf = leaf.full_tensor()      # a collective: every rank
+            if not writer:
+                continue
             arr, dtype = _as_numpy(leaf)
             shape = list(arr.shape)            # before ascontiguousarray
             arr = np.ascontiguousarray(arr)    # (promotes 0-d to 1-d)
@@ -60,18 +75,23 @@ def save(ckpt_dir: str, step: int, tree: Any, tag: str = "state") -> str:
             np.save(os.path.join(tmp, fn), arr.view(np.uint8).reshape(-1))
             manifest["leaves"].append(
                 {"name": name, "file": fn, "shape": shape, "dtype": dtype})
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f, indent=1)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        if writer:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f, indent=1)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if writer:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
-    with open(os.path.join(ckpt_dir, "LATEST.tmp"), "w") as f:
-        f.write(str(step))
-    os.replace(os.path.join(ckpt_dir, "LATEST.tmp"),
-               os.path.join(ckpt_dir, "LATEST"))
+    if writer:
+        with open(os.path.join(ckpt_dir, "LATEST.tmp"), "w") as f:
+            f.write(str(step))
+        os.replace(os.path.join(ckpt_dir, "LATEST.tmp"),
+                   os.path.join(ckpt_dir, "LATEST"))
+    if sharded:
+        dist.barrier()
     return final
 
 

@@ -9,10 +9,14 @@ int8 error-feedback collective of ``repro_torch.parallel.compression``
 (1 B an element on the wire).  Parameters and optimizer state are
 replicated over the data axes (the compressed mean gives every rank the
 same update bit for bit); the error-feedback residuals are per shard, a
-(n_shards, *shape) float32 state of which a rank holds its row.  The
-model axis must have size 1: tensor and expert parallelism need the
-DTensor model path of the Trainer's mesh branch (ROADMAP.md, "Modules
-to port").
+(n_shards, *shape) float32 state of which a rank holds its row.  With a
+model axis above 1 the parameters and moments are ``DTensor``s split over
+``model`` by the sharding rules (replicated over the data axes) and the
+loss runs with tensor and expert parallelism inside it, as the Trainer's
+mesh branch runs it; the data axes stay manual, as in the JAX package's
+partial-manual ``shard_map``: a rank's batch rows enter as a DTensor
+replicated over them, so no collective of the loss crosses a data axis,
+and the gradient mean over them is the compressed one.
 
 :class:`FabricGradSync` routes a gradient mean through the port's
 nonblocking MPI layer (``repro_torch.mpi``): post the reduction, keep
@@ -166,7 +170,12 @@ def build(model, mesh, ocfg, batch_example):
     (3, B, S) on dim 1), its loss and gradients, the compressed mean of
     the gradients over the data groups and the mean of the loss, and runs
     AdamW; the parameters, moments and error rows are updated in place.
-    ``loss`` is the mean loss over the shards.
+    ``loss`` is the mean loss over the shards.  With a model axis above 1
+    the parameters and moments are placed on ``mesh`` on entry as
+    ``placements`` says (plain leaves are distributed, and the
+    parameters swapped into the ``Params`` module), the error rows are
+    this rank's shards ((1, *local shape), or DTensors placed so), and
+    each leaf's int8 scale is the maximum over the whole leaf.
 
     ``placements``: DTensor placements on ``mesh``, as trees of lists,
     of the parameters (``param_shardings`` with ``fsdp`` off), the
@@ -178,16 +187,13 @@ def build(model, mesh, ocfg, batch_example):
 
     from repro_torch.models import convert
     from repro_torch.parallel import compression as comp
+    from repro_torch.parallel import dtensor as D
     from repro_torch.parallel import sharding as shlib
     from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import place_state
 
     sizes = shlib.axis_sizes(mesh)
-    if sizes.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"manual_dp.build: a model axis of size {sizes['model']} needs "
-            f"tensor and expert parallelism inside the loss, which waits "
-            f"for the Trainer's mesh branch (ROADMAP.md, \"Modules to "
-            f"port\")")
+    tp = sizes.get("model", 1)
     data_axes = tuple(a for a in ("pod", "data") if a in sizes)
     if not data_axes:
         raise ValueError("manual_dp.build: the mesh has no data axis")
@@ -205,6 +211,7 @@ def build(model, mesh, ocfg, batch_example):
     ptree = model.init_eval().tree()
     scale_of = convert.jax_leaf_names(
         model.cfg, [n for n, _ in T.flatten_with_names(ptree)])
+    rep = [Replicate() for _ in sizes]
 
     def local_batch(batch):
         out = {}
@@ -216,15 +223,24 @@ def build(model, mesh, ocfg, batch_example):
                                  f"not split over {n_shards} data shards")
             n = b // n_shards
             out[k] = v.narrow(dim, shard * n, n)
+            if tp > 1:     # manual over the data axes: replicated there
+                out[k] = DTensor.from_local(out[k], mesh, rep,
+                                            run_check=False)
         return out
 
     def step(params, opt_state, err, batch):
+        if tp > 1:
+            opt_state = place_state(params, opt_state, mesh, pplace)
         tree = params.tree()
         leaves = T.leaves(tree)
         for p in leaves:
             p.requires_grad_(True)
         loss, _ = model.loss_fn(params, local_batch(batch))
         grads = torch.autograd.grad(loss, leaves)
+        if tp > 1:
+            loss = D.settle(loss).to_local()
+            grads = [g.redistribute(placements=p.placements)
+                     for p, g in zip(leaves, grads)]
         rows = [(e.to_local() if isinstance(e, DTensor) else e)
                 for e in T.leaves(err)]
         if any(r.shape[0] != 1 for r in rows):
@@ -250,8 +266,7 @@ def build(model, mesh, ocfg, batch_example):
         return shlib.param_spec(path, leaf.shape, model.cfg, sizes)
     pplace = shlib.map_with_path(
         lambda path, leaf: shlib.placements(pspec(path, leaf), mesh), ptree)
-    oplace = opt.OptState(mu=pplace, nu=pplace,
-                          step=[Replicate() for _ in sizes])
+    oplace = opt.OptState(mu=pplace, nu=pplace, step=rep)
     eplace = shlib.map_with_path(lambda path, leaf: shlib.placements(
         (dentry,) + pspec(path, leaf), mesh), ptree)
     bplace = {k: shlib.placements(spec, mesh) for k, spec in

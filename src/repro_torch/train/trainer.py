@@ -1,6 +1,6 @@
 """Trainer: train step (loss -> grads -> clip -> AdamW), microbatch
 accumulation, checkpoint/restart, straggler watchdog; PyTorch port of
-``repro.train.trainer`` (its ``mesh=None`` path).
+``repro.train.trainer``.
 
 The step runs eagerly (PyTorch has no ``jit``):
 
@@ -13,19 +13,34 @@ The step runs eagerly (PyTorch has no ``jit``):
     the metrics are the last microbatch's;
   * ``opt.apply_updates`` writes the new parameters and moments into the
     tensors it is given, so a step keeps one copy of the state (the JAX
-    trainer's donation), and nothing in it waits for the device.
+    trainer's donation: ``TrainerConfig`` has no ``donate``), and nothing
+    in it waits for the device.
 
 The parameters are the model's ``Params``; the step switches on their
 ``requires_grad``.  The state a checkpoint holds is ``(params.tree(),
-opt_state)``.  The mesh path (pjit with parameter, optimizer and batch
-shardings, FSDP) waits for the Trainer's mesh branch, the next item of
-ROADMAP.md's "Modules to port": it needs DTensor through the model, K4's
-and K4b's autograd function included.  The int8 gradient compression
-runs in ``train/manual_dp.build``.
+opt_state)``.
+
+With a mesh (a ``DeviceMesh`` with dims named ``("data", "model")`` or
+``("pod", "data", "model")``, as ``launch/mesh.py`` makes them) the step
+is the JAX trainer's pjit step in PyTorch's idiom: the parameters are
+``DTensor``s placed by ``parallel.sharding.param_shardings`` (``fsdp``
+adds ZeRO-3's split of d_model over ``data``), the moments like their
+parameters, the step count replicated, and the batch by
+``batch_shardings`` (``positions`` on dim 1); a leaf that is not yet a
+DTensor is distributed on entry (``in_shardings``: the parameters are
+swapped into the ``Params`` module, which keeps them), and the step
+leaves every leaf with those placements (``out_shardings``).  The model
+then runs on each rank's local shards: tensor parallelism over
+``model``, expert parallelism for MoE, FSDP's gathers over ``data``
+(``models/``, ``parallel/dtensor.py``).  Microbatch i is the global
+batch rows [i n, (i + 1) n), placed over the data axes.  The metrics
+come back as plain tensors, the same on every rank.  The int8 gradient
+compression runs in ``train/manual_dp.build``.
 
 Fault tolerance: ``fit`` checkpoints every ``ckpt_every`` steps (atomic —
-train/checkpoint.py), resumes from LATEST on restart, and a watchdog flags
-straggler steps (> ``straggler_factor`` x running median).
+train/checkpoint.py; on a mesh rank 0 writes each leaf whole), resumes
+from LATEST on restart (on a mesh, onto the same placements), and a
+watchdog flags straggler steps (> ``straggler_factor`` x running median).
 """
 from __future__ import annotations
 
@@ -37,8 +52,12 @@ from typing import Callable, Dict, Iterator
 
 import numpy as np
 import torch
+from torch import nn
+from torch.distributed.tensor import Replicate, distribute_tensor
 
 from repro_torch.models.model import Model, Params
+from repro_torch.parallel import dtensor as D
+from repro_torch.parallel import sharding as shlib
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
 from repro_torch.train import tree as T
@@ -52,12 +71,61 @@ class TrainerConfig:
     ckpt_every: int = 0                 # 0 = disabled
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro-torch-ckpt")
     straggler_factor: float = 3.0
+    fsdp: bool = False
 
 
 def _split(name: str, v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Batch rows [lo, hi) of batch entry ``name``: dim 1 of M-RoPE
     ``positions`` (3, B, S), dim 0 of every other entry."""
     return v[:, lo:hi] if name == "positions" else v[lo:hi]
+
+
+def _distribute(t: torch.Tensor, mesh, place) -> torch.Tensor:
+    """``t`` placed ``place`` on ``mesh``: a plain tensor distributed from
+    rank 0's value, a DTensor redistributed where it is placed otherwise."""
+    if D.is_dt(t):
+        return (t if list(t.placements) == list(place)
+                else t.redistribute(placements=place))
+    return distribute_tensor(t.detach(), mesh, place)
+
+
+def place_state(params: Params, opt_state: opt.OptState, mesh, pplace
+                ) -> opt.OptState:
+    """The parameters (swapped into the ``Params`` module) and the
+    optimizer state on ``mesh``: each parameter and its moments placed by
+    ``pplace`` (a tree of ``Params.tree()``'s structure with DTensor
+    placement lists), the step replicated.  Leaves already placed so are
+    kept.  Returns the placed state."""
+    place = dict(zip((n for n, _ in T.flatten_with_names(params.tree())),
+                     T.leaves_like(pplace, params.tree())))
+    for mname, mod in params.named_modules():
+        if not isinstance(mod, nn.ParameterDict):
+            continue
+        for k, p in list(mod.items()):
+            if not isinstance(p, torch.Tensor):
+                continue                        # a nested dict: its own
+            name = "".join(f"[{int(x)}]" if x.isdigit() else f"[{x!r}]"
+                           for x in mname.split(".") + [k])
+            new = _distribute(p if D.is_dt(p) else p.data, mesh,
+                              place[name])
+            if new is not p:
+                mod[k] = nn.Parameter(new.detach(), requires_grad=False)
+    return opt.OptState(*(
+        T.map_with_names(lambda n, m: _distribute(m, mesh, place[n]), ms)
+        for ms in (opt_state.mu, opt_state.nu)),
+        step=_distribute(opt_state.step, mesh, [Replicate()] * mesh.ndim))
+
+
+def _like_acc(g: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """A gradient placed like its buffer (its partial sums reduced)."""
+    if D.is_dt(g) and list(g.placements) != list(acc.placements):
+        return g.redistribute(placements=acc.placements)
+    return g
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A 0-d metric as a plain tensor (a DTensor's value, replicated)."""
+    return D.settle(t).to_local() if D.is_dt(t) else t
 
 
 def block(t: torch.Tensor) -> None:
@@ -69,22 +137,68 @@ def block(t: torch.Tensor) -> None:
 class Trainer:
     def __init__(self, model: Model, opt_cfg: opt.OptConfig,
                  tcfg: TrainerConfig, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer: the mesh path (sharded parameters, optimizer and "
-                "batch; FSDP) waits for the Trainer's mesh branch (ROADMAP.md,"
-                " \"Modules to port\"; DTensor through the model); pass "
-                "mesh=None, or train data-parallel with manual_dp.build")
         self.model = model
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self._step_fn = None
+        self._pplace = None
         self.straggler_events = []
 
+    # ------------------------------------------------------------ placing
+    def param_placements(self):
+        """The DTensor placements of every parameter on the mesh, a tree of
+        ``Params.tree()``'s structure (``param_shardings`` with
+        ``tcfg.fsdp``)."""
+        if self._pplace is None:
+            cfg, mesh, fsdp = self.model.cfg, self.mesh, self.tcfg.fsdp
+            self._pplace = shlib.map_with_path(
+                lambda path, leaf: shlib.placements(shlib.param_spec(
+                    path, leaf.shape, cfg, mesh, fsdp), mesh),
+                self.model.init_eval().tree())
+        return self._pplace
+
+    def state_placements(self):
+        """(parameter placements, ``OptState`` of the moments' and the
+        step's), the trees ``checkpoint.restore(shardings=)`` takes."""
+        pp = self.param_placements()
+        return pp, opt.OptState(mu=pp, nu=pp,
+                                step=[Replicate()] * len(
+                                    shlib.axis_sizes(self.mesh)))
+
+    def place(self, params: Params, opt_state: opt.OptState
+              ) -> opt.OptState:
+        """Put the parameters (swapped into the ``Params`` module) and the
+        optimizer state on the mesh with their placements; returns the
+        placed state.  Leaves already placed so are kept."""
+        return place_state(params, opt_state, self.mesh,
+                           self.param_placements())
+
+    def _batches(self, batch, batch_example):
+        """The microbatches of ``batch``, each placed over the data axes
+        (by ``batch_example``'s specs, where given, for a single one):
+        the global rows [i n, (i + 1) n) of every entry."""
+        mesh, mb = self.mesh, self.tcfg.microbatches
+        n = batch["tokens"].shape[0] // mb
+        out = []
+        for i in range(mb):
+            part = batch if mb == 1 else {
+                k: _split(k, D.whole(v).to_local() if D.is_dt(v) else v,
+                          i * n, (i + 1) * n) for k, v in batch.items()}
+            specs = shlib.batch_shardings(
+                batch_example if (mb == 1 and batch_example is not None)
+                else part, mesh)
+            out.append({k: _distribute(v, mesh,
+                                       shlib.placements(specs[k], mesh))
+                        for k, v in part.items()})
+        return out
+
     # ------------------------------------------------------------ stepfn
-    def build_step(self) -> Callable:
+    def build_step(self, batch_example=None) -> Callable:
         """step(params, opt_state, batch) -> (params, opt_state, metrics),
-        updating ``params`` and the moments in place."""
+        updating ``params`` and the moments in place.  On a mesh the batch
+        is placed by ``batch_example``'s specs where it is given (JAX's
+        ``in_shardings``), else by the batch's own."""
         model, ocfg, tcfg = self.model, self.opt_cfg, self.tcfg
 
         def grads_of(leaves, params, batch):
@@ -93,37 +207,41 @@ class Trainer:
 
         def step(params: Params, opt_state: opt.OptState,
                  batch: Dict[str, torch.Tensor]):
+            mb = tcfg.microbatches
+            b = batch["tokens"].shape[0]
+            if b % mb:
+                raise ValueError(f"batch {b} does not split into {mb} "
+                                 f"microbatches")
+            n = b // mb
+            if self.mesh is not None:
+                opt_state = self.place(params, opt_state)
+                parts = self._batches(batch, batch_example)
+            else:
+                parts = [batch] if mb == 1 else [
+                    {k: _split(k, v, i * n, (i + 1) * n)
+                     for k, v in batch.items()} for i in range(mb)]
             tree = params.tree()
             leaves = T.leaves(tree)
             for p in leaves:
                 p.requires_grad_(True)
-            mb = tcfg.microbatches
             if mb > 1:
-                b = batch["tokens"].shape[0]
-                if b % mb:
-                    raise ValueError(f"batch {b} does not split into {mb} "
-                                     f"microbatches")
-                n = b // mb
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in leaves]
-                loss_sum = torch.zeros((), dtype=torch.float32,
-                                       device=leaves[0].device)
-                for i in range(mb):
-                    mbatch = {k: _split(k, v, i * n, (i + 1) * n)
-                              for k, v in batch.items()}
+                acc = [torch.zeros_like(p, dtype=torch.float32)
+                       for p in leaves]
+                loss_sum = 0.0
+                for mbatch in parts:
                     loss, metrics, grads = grads_of(leaves, params, mbatch)
                     for a, g in zip(acc, grads):
-                        a.add_(g)
+                        a.add_(_like_acc(g, a))
                     del grads
-                    loss_sum = loss_sum + loss.detach()
+                    loss_sum = loss_sum + D.settle(loss.detach())
                 torch._foreach_div_(acc, float(mb))
                 grads, loss = acc, loss_sum / mb
             else:
-                loss, metrics, grads = grads_of(leaves, params, batch)
+                loss, metrics, grads = grads_of(leaves, params, parts[0])
                 grads, loss = list(grads), loss.detach()
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
             _, opt_state, om = opt.apply_updates(tree, opt_state, grads, ocfg)
-            return params, opt_state, dict(metrics, loss=loss, **om)
+            return params, opt_state, dict(metrics, loss=_plain(loss), **om)
 
         self._step_fn = step
         return step
@@ -140,9 +258,13 @@ class Trainer:
         if resume and tcfg.ckpt_every:
             last = ckpt.latest_step(tcfg.ckpt_dir)
             if last is not None and last > start_step:
+                shardings = None
+                if self.mesh is not None:
+                    opt_state = self.place(params, opt_state)
+                    shardings = (self.mesh, self.state_placements())
                 (tree, opt_state), _ = ckpt.restore(
                     tcfg.ckpt_dir, (params.tree(), opt_state), step=last,
-                    device=opt_state.step.device)
+                    device=opt_state.step.device, shardings=shardings)
                 with torch.no_grad():
                     for dst, src in zip(T.leaves(params.tree()),
                                         T.leaves(tree)):

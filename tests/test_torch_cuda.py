@@ -1043,3 +1043,55 @@ def test_rendezvous_nic_unpack_on_the_card_equals_the_cpu(cuda):
     (gbuf, *gmeta), (cbuf, *cmeta) = outs
     np.testing.assert_array_equal(gbuf, cbuf)
     assert gmeta == cmeta
+
+
+def test_k4_k4b_through_dtensor_on_a_one_rank_nccl_mesh(cuda):
+    """The mesh path's attention on the card: DTensor q, k, v on a
+    one-rank NCCL (data, model) mesh, split by batch (and heads, over a
+    model axis of 1), run K4 and K4b on their local shards: the output
+    and the gradients equal the plain-tensor calls bit for bit, placed
+    like the inputs, and each launch counter grows by 1, as it does for
+    the plain call (a fallback to the plain version would not count)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, do = (torch.randn((2, 256, 4, 128), generator=g, device=cuda,
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((2, 256, 1, 128), generator=g, device=cuda,
+                            dtype=torch.bfloat16) for _ in range(2))
+        runs = []
+        for dtensor in (False, True):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            args = ins
+            if dtensor:
+                args = [distribute_tensor(t.detach(), mesh,
+                                          [Shard(0), Shard(2)]
+                                          ).requires_grad_(True)
+                        for t in ins]
+            n4, n4b = fa_ops.launches, fa_ops.bwd_launches
+            out = fa_ops.flash_attention(*args, causal=True, window=0)
+            grads = torch.autograd.grad(
+                out, args, distribute_tensor(do, mesh, [Shard(0), Shard(2)])
+                if dtensor else do)
+            torch.cuda.synchronize()
+            assert (fa_ops.launches - n4, fa_ops.bwd_launches - n4b) == \
+                (1, 1)
+            if dtensor:
+                assert isinstance(out, DTensor)
+                assert list(out.placements) == [Shard(0), Shard(2)]
+                assert all(list(x.placements) == [Shard(0), Shard(2)]
+                           for x in grads)
+                out, grads = out.to_local(), [x.to_local() for x in grads]
+            runs.append((out, grads))
+        (o1, g1), (o2, g2) = runs
+        assert torch.equal(o1, o2)
+        for a, b in zip(g1, g2):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

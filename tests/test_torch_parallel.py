@@ -7,8 +7,9 @@ The JAX side runs in subprocesses with fake host devices
 does): 512 for the sharding rules at (data 16, model 16), (pod 2, data 16,
 model 16) and (data 8, model 1), 4 for the compressed mean and the
 manual-DP step.  The port's multi-rank side runs in spawned CPU processes
-on a gloo process group (``tcp://localhost`` at a free port), one per
-rank; each spawned test joins its processes within its own timeout, so a
+on a gloo process group (a ``file://`` store in the test's directory),
+one per rank; each spawned test joins its processes within its own
+timeout, so a
 hung rendezvous fails the test instead of stalling the suite.  Inputs
 are drawn with numpy and handed to both.
 
@@ -33,7 +34,6 @@ import dataclasses
 import datetime
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -228,20 +228,18 @@ def test_placements_follow_the_spec_in_mesh_order():
 
 
 # ------------------------------------------------- spawned gloo ranks
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(task, n, outdir, *args):
     """Run ``_worker(task)`` on ``n`` gloo ranks; each writes
-    ``outdir/rank<r>.pt``.  Returns the ranks' results."""
+    ``outdir/rank<r>.pt``.  Returns the ranks' results.  The ranks meet at
+    a file store in ``outdir`` (a fresh name each call), so that tests
+    spawning at once in other processes never share a rendezvous, as two
+    picks of a free TCP port could."""
+    import uuid
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_worker, args=(task, r, n, port, str(outdir),
-                                               *args))
+    store = Path(outdir).resolve() / f"store-{uuid.uuid4().hex}"
+    procs = [ctx.Process(target=_worker, args=(task, r, n, str(store),
+                                               str(outdir), *args))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -260,15 +258,19 @@ def _spawn(task, n, outdir, *args):
             for r in range(n)]
 
 
-def _worker(task, rank, n, port, outdir, *args):
+def _worker(task, rank, n, store, outdir, *args):
+    """``task``: a name of this file's, or a module-level function of
+    another test file's, called as ``task(rank, n, *args)``."""
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+    dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=n, rank=rank,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        out = {"compress": _compress_rank, "manual_dp": _manual_dp_rank,
-               "restore": _restore_rank}[task](rank, n, *args)
+        fn = task if callable(task) else {
+            "compress": _compress_rank, "manual_dp": _manual_dp_rank,
+            "restore": _restore_rank}[task]
+        out = fn(rank, n, *args)
         torch.save(out, Path(outdir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -430,11 +432,13 @@ from repro.models.model import build_model
 from repro.train import manual_dp, optimizer as opt
 
 arch, steps = sys.argv[2], int(sys.argv[3])
+shape = tuple(int(x) for x in sys.argv[4].split(","))
 cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
 model = build_model(cfg)
 # Auto axes: the step is manual over "data" only, and the model axis is
 # left to XLA, as the JAX package's build was written for
-mesh = jax.make_mesh((2, 1), ("data", "model"), devices=jax.devices()[:2],
+mesh = jax.make_mesh(shape, ("data", "model"),
+                     devices=jax.devices()[:shape[0] * shape[1]],
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 toks = np.random.default_rng(7).integers(0, cfg.vocab, (4, 17)).astype(
     np.int32)
@@ -444,7 +448,8 @@ ocfg = opt.OptConfig(lr=5e-3, warmup_steps=1, total_steps=20)
 fn, _ = manual_dp.build(model, mesh, ocfg, batch)
 params = model.init(jax.random.key(0))
 ost = opt.init(params)
-err = jax.tree.map(lambda p: jnp.zeros((2,) + p.shape, jnp.float32), params)
+err = jax.tree.map(lambda p: jnp.zeros((shape[0],) + p.shape, jnp.float32),
+                   params)
 out = {"tokens": toks}
 
 
@@ -472,13 +477,15 @@ def _by_prefix(arrays, prefix):
                            if k.startswith(prefix + "[")})
 
 
-def _manual_dp_rank(rank, n, jax_path):
-    """Rank ``rank`` of 2 on a (data 2, model 1) mesh: MDP_STEPS steps of
-    ``manual_dp.build``'s step from the JAX package's initial state, and
-    each step again from the JAX package's state before it, with the
-    scale of each leaf that the compressed mean used."""
+def _manual_dp_rank(rank, n, jax_path, shape=(2, 1)):
+    """Rank ``rank`` of a (data, model) = ``shape`` mesh: MDP_STEPS steps
+    of ``manual_dp.build``'s step from the JAX package's initial state,
+    and each step again from the JAX package's state before it, with the
+    scale of each leaf that the compressed mean used.  On a model axis
+    above 1 the error state is placed as ``build`` says, and the state
+    comes back whole (each rank's error row whole)."""
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
     from repro_torch.models.model import build_model
     from repro_torch.train import manual_dp
     from repro_torch.train import optimizer as opt
@@ -487,7 +494,8 @@ def _manual_dp_rank(rank, n, jax_path):
     cfg = dataclasses.replace(tconfigs.get_smoke_config(MDP_ARCH),
                               dtype="float32")
     model = build_model(cfg)
-    mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    data_row = mesh.get_coordinate()[0]
     toks = torch.from_numpy(arrays["tokens"])
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     step, (pplace, oplace, eplace, bplace) = manual_dp.build(
@@ -511,26 +519,42 @@ def _manual_dp_rank(rank, n, jax_path):
             "mu": _by_prefix(arrays, f"{t}/mu"),
             "nu": _by_prefix(arrays, f"{t}/nu"),
             "step": arrays[f"{t}/step"]}, device="cpu")
+        if shape[1] > 1:
+            jerr = _by_prefix(arrays, f"{t}/err")
+            rows = [dict(T.flatten_with_names(convert.port_layout(
+                cfg, T.map_tree(lambda e: e[r], jerr))))
+                for r in range(shape[0])]
+            return params, ost, T.map_with_names(
+                lambda n, _: distribute_tensor(torch.from_numpy(np.stack(
+                    [row[n] for row in rows])), mesh, eplaces[n]),
+                model.init_eval().tree())
         rows = T.map_tree(lambda e: e[rank], _by_prefix(arrays, f"{t}/err"))
         err = T.map_tree(lambda e: torch.from_numpy(e[None].copy()),
                          convert.port_layout(cfg, rows))
         return params, ost, err
 
+    def whole(v):
+        return v.full_tensor() if isinstance(v, DTensor) else v
+
     def named(params, ost, err):
-        return {"params": {k: v.detach() for k, v in
+        return {"params": {k: whole(v).detach() for k, v in
                            T.flatten_with_names(params.tree())},
-                "mu": dict(T.flatten_with_names(ost.mu)),
-                "nu": dict(T.flatten_with_names(ost.nu)),
-                "err": {k: (v.to_local() if isinstance(v, DTensor) else v)[0]
+                "mu": {k: whole(v) for k, v in T.flatten_with_names(ost.mu)},
+                "nu": {k: whole(v) for k, v in T.flatten_with_names(ost.nu)},
+                "err": {k: (v.full_tensor()[data_row] if shape[1] > 1 else
+                            (v.to_local() if isinstance(v, DTensor)
+                             else v)[0])
                         for k, v in T.flatten_with_names(err)}}
 
-    out = {"forced": []}
+    out = {"forced": [], "data_row": data_row}
+    eplaces = dict(zip((n for n, _ in T.flatten_with_names(
+        model.init_eval().tree())),
+        T.leaves_like(eplace, model.init_eval().tree())))
     params, ost, err = state(0)
     # the free run holds the error state as DTensors placed as build says
-    places = dict(zip((n for n, _ in T.flatten_with_names(err)),
-                      T.leaves_like(eplace, params.tree())))
-    err = T.map_with_names(
-        lambda n, e: DTensor.from_local(e, mesh, places[n]), err)
+    if shape[1] == 1:
+        err = T.map_with_names(
+            lambda n, e: DTensor.from_local(e, mesh, eplaces[n]), err)
     free = []
     for _ in range(MDP_STEPS):
         params, ost, err, loss = step(params, ost, err, batch)
@@ -573,12 +597,18 @@ def test_manual_dp_build_vs_jax_on_two_gloo_ranks(tmp_path):
     differs, the parameters within 1e-4 and the moments within 1e-6 plus
     1e-4 relative, and elsewhere the parameters within one step of the
     learning rate (5e-3)."""
-    from torch.distributed.tensor import Replicate, Shard
     jax_path = tmp_path / "jax.npz"
-    _run(JAX_MANUAL_DP, 4, jax_path, MDP_ARCH, MDP_STEPS)
+    _run(JAX_MANUAL_DP, 4, jax_path, MDP_ARCH, MDP_STEPS, "2,1")
     with np.load(jax_path) as z:
         arrays = dict(z)
-    ranks = _spawn("manual_dp", 2, tmp_path, str(jax_path))
+    check_manual_dp(_spawn("manual_dp", 2, tmp_path, str(jax_path)), arrays)
+
+
+def check_manual_dp(ranks, arrays):
+    """The checks of ``test_manual_dp_build_vs_jax_on_two_gloo_ranks`` on
+    the ranks' results of ``_manual_dp_rank`` against the JAX ``build``'s
+    ``arrays``; each rank's error row is its data row's."""
+    from torch.distributed.tensor import Replicate, Shard
     tc = dataclasses.replace(tconfigs.get_smoke_config(MDP_ARCH),
                              dtype="float32")
     for r in ranks:
@@ -587,7 +617,8 @@ def test_manual_dp_build_vs_jax_on_two_gloo_ranks(tmp_path):
     assert arrays["losses"][-1] < arrays["losses"][0]
     for key in ("params", "mu", "nu"):
         for name, v in ranks[0]["free"][key].items():
-            assert torch.equal(v, ranks[1]["free"][key][name]), (key, name)
+            for r in ranks[1:]:
+                assert torch.equal(v, r["free"][key][name]), (key, name)
     flips = total = 0
     for t in range(1, MDP_STEPS + 1):
         forced = [r["forced"][t - 1] for r in ranks]
@@ -596,12 +627,13 @@ def test_manual_dp_build_vs_jax_on_two_gloo_ranks(tmp_path):
                                               rel=1e-5)
         want = {key: _port_named(tc, _by_prefix(arrays, f"{t}/{key}"))
                 for key in ("params", "mu", "nu")}
-        jerr = _by_prefix(arrays, f"{t}/err")     # leaves (2, *shape)
+        jerr = _by_prefix(arrays, f"{t}/err")     # leaves (n, *shape)
         names = list(forced[0]["params"])
         assert sorted(names) == sorted(want["params"])
         moved = {}
-        for rank, f in enumerate(forced):
-            werr = _port_named(tc, T.map_tree(lambda e: e[rank], jerr))
+        for r, f in zip(ranks, forced):
+            werr = _port_named(tc, T.map_tree(lambda e: e[r["data_row"]],
+                                              jerr))
             for name, s in zip(names, f["scales"]):
                 d = werr[name] - f["err"][name].numpy()
                 k = np.round(d / s)

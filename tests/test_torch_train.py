@@ -45,7 +45,6 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.net import LinkConfig as TLinkConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from repro_torch.train import manual_dp  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import tree as T  # noqa: E402
 from repro_torch.train.manual_dp import FabricGradSync as TSync  # noqa: E402
@@ -336,17 +335,30 @@ def test_trainer_checkpoint_restart(tmp_path):
 
 
 def test_trainer_mesh_path_waits_for_parallel():
-    """The Trainer's mesh branch (DTensor through the model) and
-    ``manual_dp.build`` on a model axis above 1 (tensor and expert
-    parallelism need it) raise, naming that item of ROADMAP.md.
-    ``manual_dp.build`` itself is held to the JAX package in
-    tests/test_torch_parallel.py."""
+    """The Trainer's mesh branch no longer raises: it takes a mesh (here
+    an {axis: size} mapping, which needs no process group) and places
+    every parameter by ``param_shardings`` with its ``fsdp`` flag, the
+    moments like them and the step replicated.  The mesh step itself,
+    and ``manual_dp.build`` on a model axis above 1, are held to the JAX
+    package on gloo ranks in tests/test_torch_mesh.py."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.parallel import sharding as shlib
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="mesh branch"):
-        Trainer(tbuild(tc), opt.OptConfig(), TrainerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh branch"):
-        manual_dp.build(tbuild(tc), {"data": 2, "model": 2},
-                        opt.OptConfig(), {})
+    sizes = {"data": 2, "model": 2}
+    for fsdp in (False, True):
+        tr = Trainer(tbuild(tc), opt.OptConfig(), TrainerConfig(fsdp=fsdp),
+                     mesh=sizes)
+        pp, op = tr.state_placements()
+        tree = tbuild(tc).init_eval().tree()
+        specs = T.leaves_like(shlib.param_shardings(tree, tc, sizes,
+                                                    fsdp=fsdp), tree)
+        got = T.leaves_like(pp, tree)
+        assert got == [shlib.placements(s, sizes) for s in specs]
+        assert T.leaves_like(op.mu, tree) == got
+        assert op.step == [Replicate(), Replicate()]
+        wq = dict(zip((n for n, _ in T.flatten_with_names(tree)),
+                      got))["['blocks'][0]['attn']['wq']"]
+        assert wq == [Shard(0) if fsdp else Replicate(), Shard(1)]
 
 
 # ---------------------------------------------------------------- faults
