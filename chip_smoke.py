@@ -176,6 +176,20 @@ and nothing of the JAX package ``repro``.  Phases:
      profiled step of each (kernels, busy ms, idle share), beside the
      card's name and power limit.  K4's and K4b's entries of the
      ``kernels`` line carry the mesh steps' launches (``mesh_launches``);
+  5j. (run last, after 5h: 5i's trainers are freed) the dry run on the
+     card: ``python -m repro_torch.launch.dryrun`` in two subprocesses,
+     into a temporary directory, for DRYRUN_CELLS (a fake process group
+     of 256 or 512 ranks, fake CUDA tensors): each row must be ``ok``
+     with nonzero FLOPs, bytes and collective bytes; its terms and state
+     GB a device are printed.  Then the grounding at phase 5d's shape
+     (gemma3-1b, 4 x 1,024, remat "dots", the plain ``Trainer``): one
+     real step counted under ``launch.roofline.CountingMode`` and the
+     same step built on fake CUDA tensors must count the same FLOPs and
+     bytes, with K4 and K4b counted 52 and 26 times; the roofline's
+     max(compute, memory) term must not exceed the median of
+     GROUND_STEPS timed steps (a floor above the time means a count is
+     wrong); the terms, the time and the model-FLOPs share of the peak
+     are printed beside the card's name and power limit;
   6. kernel timings on the card (CUDA events, median of 25 runs of 20
      back-to-back calls queued behind a GPU spin, so that the events see
      device time only; the host's cost to issue a call is printed beside
@@ -430,6 +444,12 @@ MANUAL_DP_STEPS = 4
 # (K4_PER_LAYER_STEP, K4B_PER_LAYER_STEP a layer)
 MESH_STEPS = 6
 MESH_LOSS_REL = 2e-3
+# phase 5j: the dry run's cells on the card (arch, shape, mesh), and the
+# timed steps of the grounding step
+DRYRUN_CELLS = (("gemma3-1b", "train_4k", "pod"),
+                ("qwen2-moe-a2.7b", "decode_32k", "multipod"))
+DRYRUN_TIMEOUT = 300
+GROUND_STEPS = 5
 
 
 def log(*a):
@@ -3308,6 +3328,126 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
     return out
 
 
+def phase_dryrun(dev):
+    """Phase 5j: the dry run's cells on the card, then one train step's
+    counts, real against fake, and its roofline floor against its time
+    (module docstring)."""
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch import card_line, configs
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun, roofline as rf
+    from repro_torch.train import tree as T
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    card = card_line()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        procs = [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)) for cell in DRYRUN_CELLS]
+        for (arch, shape, mesh), proc in procs:
+            try:
+                text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            finally:
+                proc.kill()
+            if proc.returncode:
+                raise AssertionError(f"dry run {arch} {shape} {mesh}: rc "
+                                     f"{proc.returncode}: {text[-3000:]}")
+            with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) \
+                    as f:
+                row = json.load(f)
+            t, coll = row["roofline"], row["collectives"]
+            log(f"[5j] dry run {arch} x {shape} x {mesh} ({row['chips']} "
+                f"fake ranks, {row['device']}): {row['status']}, trace "
+                f"{row['trace_s']} s; a rank: {t['hlo_flops']:.6e} FLOPs, "
+                f"{t['hlo_bytes']:.6e} bytes, collectives {coll}; terms "
+                f"compute {t['compute_s']:.6e} s, memory "
+                f"{t['memory_s']:.6e} s, collective {t['collective_s']:.6e}"
+                f" s ({t['bottleneck']}); state "
+                f"{row['analytic_state_bytes_per_device'] / 1e9:.6f} GB a "
+                f"device; K4/K4b {row['kernels']}; constants for {card}")
+            if row["status"] != "ok" or not (
+                    t["hlo_flops"] > 0 and t["hlo_bytes"] > 0
+                    and coll["total"] > 0):
+                raise AssertionError(f"dry run row {row}")
+    # the grounding: phase 5d's step, real and fake
+    cfg = configs.get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    ocfg = opt.OptConfig(lr=3e-3, warmup_steps=1, total_steps=20)
+    spec = shapes.train_batch_specs(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                    rng=np.random.default_rng(2))
+    counts = {}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = dryrun.fake_params(model, "cuda")
+        ost = opt.init(params.tree())
+        batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                                device="cuda") for k, v in spec.items()}
+        step = Trainer(model, ocfg, TrainerConfig()).build_step()
+        step(params, ost, batch)           # as the real step, warm
+        with rf.CountingMode() as m:
+            step(params, ost, batch)
+        counts["fake"] = m
+    del params, ost, batch
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    ost = opt.init(params.tree())
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in spec.items()}
+    step = Trainer(model, ocfg, TrainerConfig()).build_step()
+    params, ost, _ = step(params, ost, batch)          # warm up
+    torch.cuda.synchronize()
+    with rf.CountingMode() as m:
+        params, ost, met = step(params, ost, batch)
+    torch.cuda.synchronize()
+    counts["real"] = m
+    if any(isinstance(t, FakeTensor) for t in (met["loss"],
+                                               *T.leaves(params.tree()))):
+        raise AssertionError("grounding: the real step met a fake tensor")
+    times = []
+    for _ in range(GROUND_STEPS):
+        t0 = time.perf_counter()
+        params, ost, _ = step(params, ost, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del params, ost, batch, step
+    torch.cuda.empty_cache()
+    med = float(np.median(times))
+    real, fake = counts["real"], counts["fake"]
+    k = [(c.calls.get("repro::flash_attention", 0),
+          c.calls.get("repro::flash_attention_bwd", 0)) for c in (real, fake)]
+    compute_s, memory_s = real.flops / rf.PEAK_FLOPS, real.bytes / rf.HBM_BW
+    floor = max(compute_s, memory_s)
+    mf = rf.model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    log(f"[5j] grounding, {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+        f"{cfg.remat}, plain Trainer: real step {real.flops} FLOPs, "
+        f"{real.bytes} bytes, collectives {real.collectives['total']}; "
+        f"fake CUDA step {fake.flops} FLOPs, {fake.bytes} bytes; K4/K4b "
+        f"counted (real, fake) {k}; terms compute {compute_s * 1e3:.3f} "
+        f"ms, memory {memory_s * 1e3:.3f} ms (floor {floor * 1e3:.3f} ms); "
+        f"measured step median {med * 1e3:.3f} ms of "
+        f"{[round(x * 1e3, 3) for x in times]}; model FLOPs {mf:.6e}, "
+        f"{mf / med / rf.PEAK_FLOPS:.4f} of the bf16 peak; floor / time "
+        f"{floor / med:.4f}; {card}")
+    want = (K4_PER_LAYER_STEP * cfg.n_layers,
+            K4B_PER_LAYER_STEP * cfg.n_layers)
+    if (real.flops, real.bytes) != (fake.flops, fake.bytes) or \
+            k != [want, want]:
+        raise AssertionError(f"grounding: real and fake counts differ, or "
+                             f"K4/K4b (real, fake) {k} are not {want}")
+    if floor > med:
+        raise AssertionError(f"grounding: the roofline floor "
+                             f"{floor * 1e3:.3f} ms exceeds the measured "
+                             f"{med * 1e3:.3f} ms: a count is wrong")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3449,6 +3589,7 @@ def main() -> int:
         profile_train_family(dev, arch, seq)
     # last, after every profile
     phase_manual_dp(dev)
+    phase_dryrun(dev)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

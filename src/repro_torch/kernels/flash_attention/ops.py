@@ -36,12 +36,28 @@ every rank), each rank attends with the KV heads of its own query heads,
 global query head h with KV head h // (H / KV), and its dk and dv are
 partial sums over the axis.  ``_forward`` and ``_backward`` only ever see
 local tensors: a DTensor there raises.
+
+Off the CPU, each launch goes through a ``torch.library`` custom op,
+``repro::flash_attention`` (K4) and ``repro::flash_attention_bwd`` (K4b),
+so that a ``TorchDispatchMode`` sees it: each op has a fake
+implementation (shapes only), so fake tensors (``FakeTensorMode``, on any
+device) take the op and load no library, and a FLOP formula in
+``torch.utils.flop_counter``'s registry: 4 D FLOPs per live (query, key)
+pair and query head forward, 10 D backward (the two products of the
+forward; the recomputed scores, dP, dV, dQ and dK), with the live pairs
+counted in closed form by the kernel's own rule (``live_pairs``).  A
+``kv_len``'s values come from the read ``_check_kv_len`` already makes
+(kept on the tensor); a fake ``kv_len`` has none and counts as Sk.  Real
+CPU tensors take the plain version directly, as before.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref as _ref
@@ -108,22 +124,66 @@ def _check_kv_len(q, k, kv_len):
             kv_len.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"flash_attention: kv_len must be int32 or int64 "
                          f"(B,) = ({q.shape[0]},) on q's device")
-    # (its version, its largest value) is kept on the tensor; an inference
-    # tensor keeps no version, so its range is read every call
+    if isinstance(kv_len, FakeTensor):          # no values to read
+        return kv_len.to(torch.int32).contiguous()
+    # (its version, its values) is kept on the tensor; an inference tensor
+    # keeps no version, so its values are read every call
     version = None if kv_len.is_inference() else kv_len._version
-    seen = getattr(kv_len, "_repro_kv_len_range", None)
+    seen = getattr(kv_len, "_repro_kv_len", None)
     if version is None or seen is None or seen[0] != version:
-        lo, hi = (int(x) for x in torch.aminmax(kv_len))
-        if lo < 1:
+        values = tuple(kv_len.tolist())
+        if min(values) < 1:
             raise ValueError(f"flash_attention: kv_len must be at least 1, "
-                             f"got {lo}")
-        seen = (version, hi)
+                             f"got {min(values)}")
+        seen = (version, values)
         if version is not None:
-            kv_len._repro_kv_len_range = seen
-    if seen[1] > k.shape[1]:
+            kv_len._repro_kv_len = seen
+    if max(seen[1]) > k.shape[1]:
         raise ValueError(f"flash_attention: kv_len must lie in [1, Sk] = "
-                         f"[1, {k.shape[1]}], got {seen[1]}")
-    return kv_len.to(torch.int32).contiguous()
+                         f"[1, {k.shape[1]}], got {max(seen[1])}")
+    out = kv_len.to(torch.int32).contiguous()
+    if out is not kv_len:                # its own version, the same values
+        seen = (None if out.is_inference() else out._version, seen[1])
+    out._repro_kv_len = seen             # for the FLOP formulas too
+    return out
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window: int,
+               kv_len: int = None) -> int:
+    """The (query, key) pairs K4 computes for one batch row and head: key j
+    of query i is live when j <= i (``causal``), j > i - window (``window``
+    > 0) and j < ``kv_len`` (None: Sk).  In closed form: the count of row
+    i is linear in i between the kinks of its min and max terms, so each
+    stretch between kinks is an arithmetic series."""
+    m = sk if kv_len is None else min(kv_len, sk)
+
+    def row(i: int) -> int:
+        hi = min(i + 1, m) if causal else m
+        lo = max(0, i - window + 1) if window > 0 else 0
+        return max(0, hi - lo)
+
+    kinks = {0, sq, m - 1, m}
+    if window > 0:
+        kinks |= {window - 1, window, m + window - 1, m + window}
+    cuts = sorted(x for x in kinks if 0 <= x <= sq)
+    return sum((b - a) * (row(a) + row(b - 1)) // 2
+               for a, b in zip(cuts, cuts[1:]) if b > a)
+
+
+def _pairs(q, k, causal: bool, window: int, kv_len) -> int:
+    """Live pairs summed over the batch rows, for one head."""
+    sq, sk = q.shape[1], k.shape[1]
+    seen = None if kv_len is None else getattr(kv_len, "_repro_kv_len", None)
+    if kv_len is not None and seen is None and \
+            not isinstance(kv_len, FakeTensor):
+        seen = (None, tuple(kv_len.tolist()))      # a caller of the op
+    if seen is None:                               # none, or fake: Sk
+        return q.shape[0] * live_pairs(sq, sk, causal, window)
+    counts = {}
+    for n in seen[1]:
+        counts[n] = counts.get(n, 0) + 1
+    return sum(c * live_pairs(sq, sk, causal, window, n)
+               for n, c in counts.items())
 
 
 def _check_cuda(q, k, v) -> None:
@@ -190,8 +250,6 @@ def _flash_attention_dtensor(q, k, v, causal: bool, window: int, kv_len):
     the output placed like q.  ``kv_len``: a DTensor split like q's
     batch."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset as local_of
     q, k, v = dt.settle(q), dt.settle(k), dt.settle(v)
     if not (dt.is_dt(k) and dt.is_dt(v)) or k.placements != v.placements \
             or k.device_mesh != q.device_mesh:
@@ -204,8 +262,9 @@ def _flash_attention_dtensor(q, k, v, causal: bool, window: int, kv_len):
                 pk.is_shard(1) or (pk.is_shard(2) and not pq.is_shard(2)):
             raise ValueError(f"flash_attention: q placed {place} and k "
                              f"placed {tuple(k.placements)} do not fit")
-    (_, _, hl, _), qoff = local_of(q.shape, mesh, place)
-    (_, _, kvl, _), koff = local_of(k.shape, mesh, k.placements)
+    (_, _, hl, _), qoff = dt.local_shape_and_offset(q.shape, mesh, place)
+    (_, _, kvl, _), koff = dt.local_shape_and_offset(k.shape, mesh,
+                                                     k.placements)
     group = q.shape[2] // k.shape[2]
     ql = q.to_local()
     kv_grad = dt.grad_placements(k, place) if (k.requires_grad
@@ -250,14 +309,45 @@ def _forward(q, k, v, causal: bool, window: int, kv_len=None,
              with_lse: bool = False):
     """The output, or (output, lse) with ``with_lse``; ``kv_len`` as
     ``_check_kv_len`` returns it."""
-    global launches
     _local_only(q, k, v)
-    b, sq, h, d = q.shape
-    _, sk, kvh, _ = k.shape
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not isinstance(q, FakeTensor):
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, kv_len=kv_len,
                                         return_lse=with_lse)
+    out, lse = torch.ops.repro.flash_attention(q, k, v, kv_len, causal,
+                                               window, with_lse)
+    return (out, lse) if with_lse else out
+
+
+@torch.library.custom_op("repro::flash_attention", mutates_args=())
+def _k4_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_len: Optional[torch.Tensor], causal: bool, window: int,
+           with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's launch: (out, lse), lse empty (0,) without ``with_lse``."""
+    out, lse = _launch(q, k, v, causal, window, kv_len, with_lse)
+    return out, (lse if with_lse else
+                 torch.empty(0, dtype=torch.float32, device=q.device))
+
+
+@_k4_op.register_fake
+def _(q, k, v, kv_len, causal, window, with_lse):
+    b, sq, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty(
+        (b, h, sq) if with_lse else (0,), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro.flash_attention, get_raw=True)
+def _k4_flops(q, k, v, kv_len, causal, window, with_lse, *args, **kwargs
+              ) -> int:
+    return 4 * q.shape[3] * q.shape[2] * _pairs(q, k, causal, window,
+                                                kv_len)
+
+
+def _launch(q, k, v, causal: bool, window: int, kv_len, with_lse: bool):
+    """K4 on CUDA tensors: (out, lse or None)."""
+    global launches
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
     _check_cuda(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
@@ -266,7 +356,7 @@ def _forward(q, k, v, causal: bool, window: int, kv_len=None,
            if with_lse else None)
     if out.numel() == 0 or sk == 0:
         out.zero_()
-        return (out, lse.fill_(torch.inf)) if with_lse else out
+        return out, (lse.fill_(torch.inf) if with_lse else None)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  None if kv_len is None else kv_len.data_ptr(), b, sq, sk, h,
@@ -278,7 +368,7 @@ def _forward(q, k, v, causal: bool, window: int, kv_len=None,
         raise RuntimeError(f"flash_attention: CUDA launch failed (error "
                            f"{err})")
     launches += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
 _BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 3
@@ -339,6 +429,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (TMA's and the 16-byte
     loads' requirement), copied only where it is not."""
     t = t.contiguous()
+    if isinstance(t, FakeTensor):                  # no address
+        return t
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -346,7 +438,6 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
               lse, kv_len):
     """K4b or the plain backward; ``kv_len`` as ``_check_kv_len`` returns
     it."""
-    global bwd_launches
     _local_only(q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_bwd: o and do must have q's shape")
@@ -358,18 +449,53 @@ def _backward(q, k, v, o, do, causal: bool, window: int, planted: tuple,
                             or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be (B, H, Sq) = "
                          f"{(b, h, sq)} on q's device")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not isinstance(q, FakeTensor):
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                             window=window, lse=lse,
                                             kv_len=kv_len)
+    if lse is None and q.numel() and k.numel():
+        lse = _forward(*(_aligned(t.to(q.dtype)) for t in (q, k, v)),
+                       causal, window, kv_len, with_lse=True)[1]
+    if planted:
+        return _bwd_launch(q, k, v, o, do, causal, window, planted, lse,
+                           kv_len)
+    return torch.ops.repro.flash_attention_bwd(q, k, v, o, do, lse, kv_len,
+                                               causal, window)
+
+
+@torch.library.custom_op("repro::flash_attention_bwd", mutates_args=())
+def _k4b_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, do: torch.Tensor, lse: Optional[torch.Tensor],
+            kv_len: Optional[torch.Tensor], causal: bool, window: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4b's launch: (dq, dk, dv)."""
+    return _bwd_launch(q, k, v, o, do, causal, window, (), lse, kv_len)
+
+
+@_k4b_op.register_fake
+def _(q, k, v, o, do, lse, kv_len, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro.flash_attention_bwd, get_raw=True)
+def _k4b_flops(q, k, v, o, do, lse, kv_len, causal, window, *args,
+               **kwargs) -> int:
+    return 10 * q.shape[3] * q.shape[2] * _pairs(q, k, causal, window,
+                                                 kv_len)
+
+
+def _bwd_launch(q, k, v, o, do, causal: bool, window: int, planted: tuple,
+                lse, kv_len):
+    """K4b (or its planted-fault variant) on CUDA tensors."""
+    global bwd_launches
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
     _check_cuda(q, k, v)
     q, k, v, o, do = (_aligned(t.to(q.dtype)) for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    if lse is None:
-        lse = _forward(q, k, v, causal, window, kv_len, with_lse=True)[1]
     lse = lse.to(torch.float32).contiguous()
     fn, ws = _bwd_fn(bool(planted))
     n_work = ws(b, sq, sk, h, kvh, d, _DTYPE_CODE[q.dtype], int(causal),

@@ -33,6 +33,11 @@ rotates its local heads, and K4 runs on them (``fa_ops.flash_attention``
 takes DTensors; where the KV heads do not divide ``model``, ``wk`` and
 ``wv`` are whole and each rank attends with its query heads' KV heads).
 Whisper's ``enc_len`` comes split over the data axes like the batch.
+Decode on the mesh: ``fill_kv_cache`` and ``attend_decode`` write into a
+cache placed by ``cache_shardings`` on the ranks whose shards hold the
+slots (offsets from ``dtensor.local_shape_and_offset``), and the
+single-token attention runs on each rank's batch rows and heads over the
+cache gathered whole along its sequence.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as L
+from repro_torch.parallel import dtensor as D
 
 NEG_INF = -1e30
 ENCODER_BLOCK = 512       # blockwise_attention's default block_k
@@ -146,7 +152,13 @@ def fill_kv_cache(cache_k, cache_v, k, v, kind: str, window: int):
     (slot = pos % C), matching attend_decode's addressing."""
     s = k.shape[1]
     c = cache_k.shape[1]
-    if kind == "local" and s > c:
+    if D.is_dt(cache_k):
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            (_, cl, _, _), (_, off, _, _) = D.local_shape_and_offset(
+                cache.shape, cache.device_mesh, cache.placements)
+            _fill_local(cache.to_local(), _like_cache(new, cache).to_local(),
+                        off, cl, c, kind)
+    elif kind == "local" and s > c:
         slots = torch.arange(s - c, s, device=k.device) % c
         cache_k[:, slots] = k[:, s - c:]
         cache_v[:, slots] = v[:, s - c:]
@@ -155,6 +167,92 @@ def fill_kv_cache(cache_k, cache_v, k, v, kind: str, window: int):
         cache_k[:, :n] = k[:, :n]
         cache_v[:, :n] = v[:, :n]
     return cache_k, cache_v
+
+
+def _like_cache(new, cache):
+    """A DTensor ``new`` (B, S, KV, D) placed as the DTensor ``cache`` on
+    every dim but the sequence (dim 1), which it keeps whole, so that each
+    rank holds the batch rows and KV heads of its cache shard."""
+    from torch.distributed.tensor import Replicate
+    place = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    return (new if list(new.placements) == place
+            else new.redistribute(placements=place))
+
+
+def _fill_local(dst, k, off: int, n: int, c: int, kind: str) -> None:
+    """``fill_kv_cache`` of one rank: cache slots [off, off + n) of C = c
+    (``dst``, its local shard) from the whole sequence of K or V ``k``."""
+    s = k.shape[1]
+    if kind == "local" and s > c:      # slot t holds the p in [s-c, s)
+        t = torch.arange(off, off + n, device=k.device)      # with p % c = t
+        dst.copy_(k.index_select(1, (s - c) + (t - (s - c)) % c))
+    elif min(off + n, s) > off:
+        dst[:, :min(off + n, s) - off] = k[:, off:min(off + n, s)]
+
+
+def _write_slot(cache, new, slot) -> None:
+    """Write each batch row's new K or V (a DTensor (B, 1, KV, D)) into
+    cache slot ``slot`` (a plain (B,) tensor) of the DTensor ``cache``, on
+    the rank whose shard holds that slot; a where in place of a mask, so
+    no shape depends on the data."""
+    (bl, cl, _, _), (boff, off, _, _) = D.local_shape_and_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    new = _like_cache(new, cache).to_local()[:, 0]
+    t = slot[boff:boff + bl] - off
+    mine = (t >= 0) & (t < cl)
+    t = t.clamp(0, cl - 1)
+    rows = torch.arange(bl, device=t.device)
+    dst = cache.to_local()
+    dst[rows, t] = torch.where(mine[:, None, None], new, dst[rows, t])
+
+
+def _attend_cache(q, k, v, live):
+    """One query per row against a cache: q (b, 1, H, D), k/v (b, C, KV, D)
+    (query head h reads KV head h // (H / KV)), ``live`` (b, C) bool or
+    None (all live).  Returns (b, 1, H * D) in v's dtype."""
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    qh = q.reshape(b, kv, h // kv, d)
+    s = torch.einsum("bkgd,btkd->bkgt", qh.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    if live is not None:
+        s = torch.where(live[:, None, None, :], s, NEG_INF)
+    o = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", o.to(v.dtype), v)
+    return out.reshape(b, 1, h * d)
+
+
+def _attend_cache_mesh(q, k, v, live_of):
+    """``_attend_cache`` of DTensors on each rank's shards: q (B, 1, H, D)
+    split by batch and heads; k, v (B, C, KV, D) placed as
+    ``cache_shardings`` places a cache, gathered here over a mesh dim that
+    splits their sequence (DTensor's all-gather).  Each rank attends with
+    its query heads' KV heads (where ``model`` splits q's heads and not
+    k's, one KV head per query head); ``live_of(off, n)`` gives the live
+    mask (n, C) of global batch rows [off, off + n), or None.  Returns a
+    DTensor (B, 1, H * D) placed like q."""
+    from torch.distributed.tensor import DTensor
+    k, v = D.unsplit(k, 1), D.unsplit(v, 1)
+    mesh = q.device_mesh
+    (bl, _, hl, d), (boff, _, hoff, _) = D.local_shape_and_offset(
+        q.shape, mesh, q.placements)
+    (kbl, _, kvl, _), (_, _, koff, _) = D.local_shape_and_offset(
+        k.shape, mesh, k.placements)
+    if kbl != bl:
+        raise ValueError("attend_decode: the cache's batch is not split "
+                         "like the tokens'")
+    group = q.shape[2] // k.shape[2]
+    kl, vl = k.to_local(), v.to_local()
+    need = [(hoff + i) // group - koff for i in range(hl)]
+    if need != [i // group for i in range(hl)] or hl // group != kvl:
+        idx = torch.tensor(need, device=kl.device)
+        kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    out = _attend_cache(q.to_local(), kl, vl, live_of(boff, bl))
+    shape = (q.shape[0], 1, q.shape[2] * q.shape[3])
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def attend_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
@@ -172,28 +270,28 @@ def attend_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
         positions = pos[:, None]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, positions, positions)
     slot = pos % c if kind == "local" else pos      # ring buffer for local
-    rows = torch.arange(b, device=x.device)
-    cache_k[rows, slot] = k_new[:, 0]
-    cache_v[rows, slot] = v_new[:, 0]
 
-    g = cfg.n_heads // cfg.n_kv_heads
-    qh = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim)
-    s = torch.einsum("bkgd,btkd->bkgt", qh.to(torch.float32),
-                     cache_k.to(torch.float32)) / math.sqrt(cfg.head_dim)
-    # validity: absolute position of each cache slot
-    slots = torch.arange(c, device=x.device)[None, :]          # (1, C)
-    if kind == "local":
-        # slot t holds the most recent position p <= pos with p % C == t
-        abs_pos = pos[:, None] - ((pos[:, None] - slots) % c)
-        live = (abs_pos >= 0) & (abs_pos > pos[:, None] - cfg.window) & \
-               (abs_pos <= pos[:, None])
+    def live_of(off: int, n: int):
+        """Whether each cache slot holds a live key, rows [off, off + n)."""
+        at = pos[off:off + n, None]
+        slots = torch.arange(c, device=x.device)[None, :]      # (1, C)
+        if kind == "local":
+            # slot t holds the most recent position p <= pos with p % C == t
+            abs_pos = at - ((at - slots) % c)
+            return (abs_pos >= 0) & (abs_pos > at - cfg.window) & \
+                (abs_pos <= at)
+        return slots <= at
+
+    if D.is_dt(x):
+        _write_slot(cache_k, k_new, slot)
+        _write_slot(cache_v, v_new, slot)
+        out = _attend_cache_mesh(q, cache_k, cache_v, live_of)
     else:
-        live = slots <= pos[:, None]
-    s = torch.where(live[:, None, None, :], s, NEG_INF)
-    o = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", o.to(cache_v.dtype), cache_v)
-    y = out.reshape(b, 1, cfg.q_dim) @ p["wo"]
-    return y, cache_k, cache_v
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, slot] = k_new[:, 0]
+        cache_v[rows, slot] = v_new[:, 0]
+        out = _attend_cache(q, cache_k, cache_v, live_of(0, b))
+    return out @ p["wo"], cache_k, cache_v
 
 
 def attend_decode_cross(p, cfg: ModelConfig, x, enc_k, enc_v, enc_len):
@@ -202,14 +300,19 @@ def attend_decode_cross(p, cfg: ModelConfig, x, enc_k, enc_v, enc_len):
     enc_len: (B,) or None, keys at or past it masked.  q is ``x @ wq``
     alone: no bias, norm or RoPE, as in the JAX package."""
     b = x.shape[0]
-    g = cfg.n_heads // cfg.n_kv_heads
-    qh = (x @ p["wq"]).reshape(b, cfg.n_kv_heads, g, cfg.head_dim)
-    s = torch.einsum("bkgd,btkd->bkgt", qh.to(torch.float32),
-                     enc_k.to(torch.float32)) / math.sqrt(cfg.head_dim)
+    q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     if enc_len is not None:
-        live = torch.arange(enc_k.shape[1], device=x.device)[None, :] \
-            < enc_len[:, None]
-        s = torch.where(live[:, None, None, :], s, NEG_INF)
-    o = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", o.to(enc_v.dtype), enc_v)
-    return out.reshape(b, 1, cfg.q_dim) @ p["wo"]
+        enc_len = D.whole(enc_len)
+        enc_len = enc_len.to_local() if D.is_dt(enc_len) else enc_len
+
+    def live_of(off: int, n: int):
+        if enc_len is None:
+            return None
+        return torch.arange(enc_k.shape[1], device=x.device)[None, :] \
+            < enc_len[off:off + n, None]
+
+    if D.is_dt(x):
+        out = _attend_cache_mesh(q, enc_k, enc_v, live_of)
+    else:
+        out = _attend_cache(q, enc_k, enc_v, live_of(0, b))
+    return out @ p["wo"]

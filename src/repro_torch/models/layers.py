@@ -22,9 +22,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel import dtensor as dt
+
+
+def _constant(maxsize=None):
+    """Cache a function's tensor per arguments, and build it outside any
+    ``FakeTensorMode``: a fake run (the dry run) then leaves a real
+    tensor in the cache, never a fake one that a later real run would
+    meet."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args):
+            with unset_fake_temporarily():
+                return cached(*args)
+        get.cache_clear = cached.cache_clear
+        return get
+    return wrap
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -73,7 +91,7 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+@_constant()
 def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
                    ) -> torch.Tensor:
     """float32 frequencies on ``device``, copied there once: a copy from
@@ -112,7 +130,7 @@ def mrope_sections(head_dim: int):
     return (t, h, head_dim // 2 - t - h)
 
 
-@functools.lru_cache(maxsize=None)
+@_constant()
 def _mrope_components(sections: tuple, device: torch.device) -> torch.Tensor:
     """The position component (0, 1, 2) of each frequency pair."""
     return torch.as_tensor(np.concatenate([np.full(n, i) for i, n in
@@ -157,7 +175,7 @@ def sinusoid_positions(seq: int, d: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=8)
+@_constant(maxsize=8)
 def sinusoid_on(seq: int, d: int, dtype: torch.dtype, device: torch.device
                 ) -> torch.Tensor:
     """``sinusoid_positions`` in ``dtype`` on ``device``, copied there once."""

@@ -65,7 +65,16 @@ parameters that FSDP splits over a data axis are gathered per block,
 inside its checkpoint (so the gather is redone in the recompute, as
 ZeRO-3 does); the loss reduces its log-sum-exp over the mesh dims that
 split the vocabulary; and "dots" saves the DTensor products as it saves
-plain ones.
+plain ones.  Serving runs there too: ``prefill`` of a placed batch makes
+its cache placed by ``cache_shardings`` (``init_cache(mesh=)``) and fills
+each rank's shard; ``decode_step`` takes DTensor tokens and a placed
+cache (``long_context``: its sequence split over ``data``), writes each
+new key on the rank that holds its slot and gathers a sequence-split
+cache for attention (DTensor's all-gather).
+
+``cfg.ablate_mixer`` (the dry run's diagnostic) skips every block's
+sequence mixer, as the JAX package does; ``cfg.attn_scores_dtype`` other
+than float32 is refused (K4 and its plain version score in float32).
 """
 from __future__ import annotations
 
@@ -127,7 +136,11 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
     if D.is_dt(p["norm1"]["scale"]):
         p = D.gather_data(p)
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-    if kind in ATTENTION:
+    if cfg.ablate_mixer:
+        # the dry run's diagnostic, as the JAX package's: no sequence
+        # mixer, and nothing written to its cache
+        y = None
+    elif kind in ATTENTION:
         if cache is not None:
             y, (k, v) = A.attend_train(p["attn"], cfg, x, positions,
                                        kind=kind, return_kv=True)
@@ -143,7 +156,8 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
                 cache[k].copy_(v)
         else:
             y = apply(p[kind], cfg, x)
-    h = h + D.settle(y)
+    if y is not None:
+        h = h + D.settle(y)
     if "xattn" in p:
         xx = L.rmsnorm(p["normx"], h, cfg.norm_eps)
         y, (xk, xv) = A.attend_train(p["xattn"], cfg, xx, None, kind="cross",
@@ -164,7 +178,10 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
 
 def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
                         positions=None):
-    """One block, single token; updates ``cache`` in place."""
+    """One block, single token; updates ``cache`` in place.  DTensor
+    parameters split over a data axis (FSDP) are gathered first."""
+    if D.is_dt(p["norm1"]["scale"]):
+        p = D.gather_data(p)
     x = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
     if kind in ATTENTION:
         y, _, _ = A.attend_decode(p["attn"], cfg, x, cache["k"], cache["v"],
@@ -173,11 +190,11 @@ def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
         y, _ = R.rglru_apply_decode(p["rglru"], cfg, x, cache)
     else:
         y, _ = S.ssm_apply_decode(p["ssm"], cfg, x, cache)
-    h = h + y
+    h = h + D.settle(y)
     if "xattn" in p:
         xx = L.rmsnorm(p["normx"], h, cfg.norm_eps)
-        h = h + A.attend_decode_cross(p["xattn"], cfg, xx, cache["xk"],
-                                      cache["xv"], cache["enc_len"])
+        h = h + D.settle(A.attend_decode_cross(
+            p["xattn"], cfg, xx, cache["xk"], cache["xv"], cache["enc_len"]))
     if "norm2" not in p:
         return h
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
@@ -186,7 +203,7 @@ def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
         y, _ = M.moe_apply(p["moe"], cfg, x2,
                            capacity_factor=float(cfg.n_experts))
         return h + y
-    return h + L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)
+    return h + D.settle(L.mlp_apply(p["mlp"], x2, cfg.mlp_kind))
 
 
 def _tree(m):
@@ -262,6 +279,12 @@ def _nll_rows(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.attn_scores_dtype != "float32":
+            raise ValueError(
+                f"attn_scores_dtype {self.cfg.attn_scores_dtype!r}: K4 and "
+                f"its plain version score in float32 only")
 
     @property
     def kinds(self) -> Tuple[str, ...]:
@@ -408,7 +431,8 @@ class Model:
         h, positions = self._embed_inputs(params, batch)
         enc_out = self._encode(params, batch)
         enc_len = batch.get("enc_len") if enc_out is not None else None
-        cache = self.init_cache(h.shape[0], max_len, h.device)
+        cache = self.init_cache(h.shape[0], max_len, h.device,
+                                mesh=h.device_mesh if D.is_dt(h) else None)
         for p, c, kind in zip(params.blocks, cache, self.kinds):
             h, _ = _block_apply_train(p, self.cfg, kind, h, positions,
                                       enc_out, enc_len, cache=c)
@@ -417,7 +441,16 @@ class Model:
         return self._logits(params, h[:, -1:])[:, 0], cache
 
     # --------------------------------------------------------------- cache
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> Cache:
+    def init_cache(self, batch: int, max_len: int, device="cuda", mesh=None,
+                   long_context: bool = False) -> Cache:
+        """A zero cache for ``batch`` sequences of up to ``max_len``
+        positions.  With ``mesh`` each tensor is a DTensor placed by
+        ``parallel.sharding.cache_shardings`` (``long_context``: the
+        sequence split of a batch of 1), made from this rank's shard alone;
+        the encdec ``enc_len`` stays one tensor shared by every layer."""
+        if mesh is not None:
+            return self._placed_cache(batch, max_len, device, mesh,
+                                      long_context)
         cfg = self.cfg
         dev = resolve_device(device)
         dt = L.dtype_of(cfg.dtype)
@@ -444,12 +477,32 @@ class Model:
             cache.append(layer)
         return cache
 
+    def _placed_cache(self, batch: int, max_len: int, device, mesh,
+                      long_context: bool) -> Cache:
+        from repro_torch.parallel import sharding as shlib
+        shapes = self.init_cache(batch, max_len, "meta")
+        specs = shlib.cache_shardings(shapes, self.cfg, mesh,
+                                      long_context=long_context)
+        made = {}
+
+        def place(t, spec):
+            if id(t) not in made:                  # the shared enc_len
+                made[id(t)] = D.zeros_placed(
+                    t.shape, t.dtype, mesh, shlib.placements(spec, mesh),
+                    device)
+            return made[id(t)]
+        return [{k: place(t, spec[k]) for k, t in layer.items()}
+                for layer, spec in zip(shapes, specs)]
+
     # -------------------------------------------------------------- decode
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: Cache,
                     pos) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, 1); pos: absolute position (int or (B,)).  Returns
-        (logits (B, V), cache), the cache updated in place."""
-        h = L.embed_tokens(params.embed, tokens)
+        (logits (B, V), cache), the cache updated in place.  On a mesh:
+        DTensor parameters, tokens placed by ``batch_shardings`` and a
+        cache placed by ``cache_shardings`` (``init_cache(mesh=)``); a
+        plain ``pos``."""
+        h = L.embed_tokens(D.gather_data(params.embed), tokens)
         pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
         positions = self.decode_positions(pos, h.shape[0])
         for p, c, kind in zip(params.blocks, cache, self.kinds):

@@ -98,12 +98,19 @@ def dispatch(top_e: torch.Tensor, e_pad: int, capacity: int
     e_pad * capacity, the spare row, where it drops)."""
     flat_e = top_e.reshape(-1)
     se, order = torch.sort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e_pad)
+    counts = _counts(flat_e, e_pad)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(flat_e.numel(), device=flat_e.device) - starts[se]
     keep = rank < capacity
     slot = torch.where(keep, se * capacity + rank, e_pad * capacity)
     return order, keep, slot
+
+
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ``idx`` in [0, n), with a
+    shape that does not depend on the values (a fake tensor has none)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx.to(torch.int64), torch.ones_like(idx, dtype=torch.int64))
 
 
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
@@ -150,7 +157,7 @@ def _routed(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
 
     # load-balancing auxiliary loss (Switch-style): the share of
     # assignments each expert got, against its mean router probability
-    density = torch.bincount(top_e.reshape(-1), minlength=e).to(
+    density = _counts(top_e.reshape(-1), e).to(
         torch.float32) / t
     aux = cfg.router_aux_coef * e * torch.sum(density / k * probs.mean(0))
 

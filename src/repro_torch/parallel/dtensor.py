@@ -103,6 +103,37 @@ def local_call(fn: Callable, *args, like, out_placements=None):
                               run_check=False)
 
 
+def local_shape_and_offset(shape, mesh, placements):
+    """(local shape, global offset) of this rank's shard of a tensor of
+    global ``shape`` placed ``placements`` on ``mesh``, from the rank's
+    mesh coordinate and the ``Shard`` placements in mesh-dim order (the
+    first the major one), split as ``torch.chunk`` splits.  Plain Python
+    integers, so it also holds under ``FakeTensorMode``, where torch's
+    ``compute_local_shape_and_global_offset`` computes its offsets with
+    tensors and cannot read them back."""
+    coord = mesh.get_coordinate()
+    local, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            d = p.dim % len(shape)
+            full = -(-local[d] // mesh.size(i))          # torch.chunk's size
+            start = min(full * coord[i], local[d])
+            local[d] = min(local[d], start + full) - start
+            offset[d] += start
+    return tuple(local), tuple(offset)
+
+
+def zeros_placed(shape, dtype, mesh, placements, device) -> DTensor:
+    """A DTensor of zeros of global ``shape`` placed ``placements`` on
+    ``mesh``, made from this rank's shard alone (no collective, and no
+    memory for the other ranks' shards)."""
+    local, _ = local_shape_and_offset(shape, mesh, placements)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), mesh, placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def batch_placements(like: DTensor, batch_dim: int = 0) -> list:
     """Placements of a tensor whose dim ``batch_dim`` is split as
     ``like``'s batch (dim 0) is, whole elsewhere."""

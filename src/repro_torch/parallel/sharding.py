@@ -194,29 +194,32 @@ def param_shardings_puredp(params_tree, cfg: ModelConfig, mesh):
     'model'; dim 0 of a leaf of rank 3 or more (the period-scan stacking
     dim of the JAX tree) is skipped."""
     sizes = axis_sizes(mesh)
+    return map_with_path(lambda _, leaf: puredp_spec(leaf.shape, sizes),
+                         params_tree)
+
+
+def puredp_spec(shape: Tuple[int, ...], mesh) -> Spec:
+    """The spec ``param_shardings_puredp`` gives one leaf of ``shape``."""
+    sizes = axis_sizes(mesh)
     dp = _axis_size(sizes, "data")
     tp = _axis_size(sizes, "model")
-
-    def one(_, leaf):
-        shape = tuple(leaf.shape)
-        spec = [None] * len(shape)
-        order = sorted(range(len(shape)), key=lambda i: -shape[i])
-        used = []
-        for dim in order:
-            if len(spec) >= 3 and dim == 0:
-                continue
-            if "data" not in used and _div(shape[dim], dp):
-                spec[dim] = "data"
-                used.append("data")
-            elif "model" not in used and _div(shape[dim], tp) \
-                    and spec[dim] is None:
-                spec[dim] = "model"
-                used.append("model")
-            if len(used) == 2:
-                break
-        return tuple(spec)
-
-    return map_with_path(one, params_tree)
+    shape = tuple(shape)
+    spec = [None] * len(shape)
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    used = []
+    for dim in order:
+        if len(spec) >= 3 and dim == 0:
+            continue
+        if "data" not in used and _div(shape[dim], dp):
+            spec[dim] = "data"
+            used.append("data")
+        elif "model" not in used and _div(shape[dim], tp) \
+                and spec[dim] is None:
+            spec[dim] = "model"
+            used.append("model")
+        if len(used) == 2:
+            break
+    return tuple(spec)
 
 
 def batch_shardings_puredp(batch_tree, mesh):

@@ -53,6 +53,7 @@ from typing import Callable, Dict, Iterator
 import numpy as np
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import Replicate, distribute_tensor
 
 from repro_torch.models.model import Model, Params
@@ -72,6 +73,7 @@ class TrainerConfig:
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro-torch-ckpt")
     straggler_factor: float = 3.0
     fsdp: bool = False
+    pure_dp: bool = False     # mesh: no TP, batch over every axis + ZeRO-3
 
 
 def _split(name: str, v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -82,10 +84,14 @@ def _split(name: str, v: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 def _distribute(t: torch.Tensor, mesh, place) -> torch.Tensor:
     """``t`` placed ``place`` on ``mesh``: a plain tensor distributed from
-    rank 0's value, a DTensor redistributed where it is placed otherwise."""
+    rank 0's value, a DTensor redistributed where it is placed otherwise.
+    A fake tensor (``FakeTensorMode``: shapes only, no values to send)
+    becomes a DTensor made from this rank's shard alone."""
     if D.is_dt(t):
         return (t if list(t.placements) == list(place)
                 else t.redistribute(placements=place))
+    if isinstance(t, FakeTensor):
+        return D.zeros_placed(t.shape, t.dtype, mesh, place, t.device)
     return distribute_tensor(t.detach(), mesh, place)
 
 
@@ -96,6 +102,16 @@ def place_state(params: Params, opt_state: opt.OptState, mesh, pplace
     ``pplace`` (a tree of ``Params.tree()``'s structure with DTensor
     placement lists), the step replicated.  Leaves already placed so are
     kept.  Returns the placed state."""
+    place = place_params(params, mesh, pplace)
+    return opt.OptState(*(
+        T.map_with_names(lambda n, m: _distribute(m, mesh, place[n]), ms)
+        for ms in (opt_state.mu, opt_state.nu)),
+        step=_distribute(opt_state.step, mesh, [Replicate()] * mesh.ndim))
+
+
+def place_params(params: Params, mesh, pplace) -> dict:
+    """The parameters alone placed on ``mesh`` by ``pplace``, swapped into
+    the ``Params`` module (for serving); returns {leaf name: placements}."""
     place = dict(zip((n for n, _ in T.flatten_with_names(params.tree())),
                      T.leaves_like(pplace, params.tree())))
     for mname, mod in params.named_modules():
@@ -110,10 +126,26 @@ def place_state(params: Params, opt_state: opt.OptState, mesh, pplace
                               place[name])
             if new is not p:
                 mod[k] = nn.Parameter(new.detach(), requires_grad=False)
-    return opt.OptState(*(
-        T.map_with_names(lambda n, m: _distribute(m, mesh, place[n]), ms)
-        for ms in (opt_state.mu, opt_state.nu)),
-        step=_distribute(opt_state.step, mesh, [Replicate()] * mesh.ndim))
+    return place
+
+
+def _puredp_specs(cfg, tree, mesh):
+    """spec(name, leaf) of ``param_shardings_puredp`` on the port's tree:
+    a layer the JAX package stacks in a period-scan leaf takes the spec of
+    that stacked leaf (its leading dim of ``periods`` counted in the
+    rule), less the stacking dim; any other leaf its own."""
+    from repro_torch.models import convert
+    names = [n for n, _ in T.flatten_with_names(tree)]
+    stacked = {n: j.startswith("['scan_blocks']") for n, j in
+               zip(names, convert.jax_leaf_names(cfg, names))}
+    periods = (cfg.n_layers - cfg.first_k_dense) // len(cfg.layer_pattern)
+
+    def spec(name, leaf):
+        if stacked[name]:
+            return shlib.puredp_spec((periods,) + tuple(leaf.shape),
+                                     mesh)[1:]
+        return shlib.puredp_spec(leaf.shape, mesh)
+    return spec
 
 
 def _like_acc(g: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -149,13 +181,21 @@ class Trainer:
     def param_placements(self):
         """The DTensor placements of every parameter on the mesh, a tree of
         ``Params.tree()``'s structure (``param_shardings`` with
-        ``tcfg.fsdp``)."""
+        ``tcfg.fsdp``, or ``param_shardings_puredp`` with
+        ``tcfg.pure_dp``)."""
         if self._pplace is None:
             cfg, mesh, fsdp = self.model.cfg, self.mesh, self.tcfg.fsdp
-            self._pplace = shlib.map_with_path(
-                lambda path, leaf: shlib.placements(shlib.param_spec(
-                    path, leaf.shape, cfg, mesh, fsdp), mesh),
-                self.model.init_eval().tree())
+            tree = self.model.init_eval().tree()
+            if self.tcfg.pure_dp:
+                spec = _puredp_specs(cfg, tree, mesh)
+            else:
+                def spec(name, leaf):
+                    path = "/".join(map(str, T.name_parts(name)))
+                    return shlib.param_spec(path, leaf.shape, cfg, mesh,
+                                            fsdp)
+            self._pplace = T.map_with_names(
+                lambda name, leaf: shlib.placements(spec(name, leaf), mesh),
+                tree)
         return self._pplace
 
     def state_placements(self):
@@ -174,6 +214,20 @@ class Trainer:
         return place_state(params, opt_state, self.mesh,
                            self.param_placements())
 
+    def place_params(self, params: Params) -> None:
+        """Put the parameters alone on the mesh (swapped into the ``Params``
+        module), placed as ``place`` places them: the serving path's
+        state."""
+        place_params(params, self.mesh, self.param_placements())
+
+    def batch_placements(self, batch) -> Dict:
+        """{name: DTensor placements} of a batch on the mesh
+        (``batch_shardings``, or ``batch_shardings_puredp`` with
+        ``tcfg.pure_dp``)."""
+        specs = (shlib.batch_shardings_puredp if self.tcfg.pure_dp
+                 else shlib.batch_shardings)(batch, self.mesh)
+        return {k: shlib.placements(v, self.mesh) for k, v in specs.items()}
+
     def _batches(self, batch, batch_example):
         """The microbatches of ``batch``, each placed over the data axes
         (by ``batch_example``'s specs, where given, for a single one):
@@ -185,11 +239,10 @@ class Trainer:
             part = batch if mb == 1 else {
                 k: _split(k, D.whole(v).to_local() if D.is_dt(v) else v,
                           i * n, (i + 1) * n) for k, v in batch.items()}
-            specs = shlib.batch_shardings(
+            place = self.batch_placements(
                 batch_example if (mb == 1 and batch_example is not None)
-                else part, mesh)
-            out.append({k: _distribute(v, mesh,
-                                       shlib.placements(specs[k], mesh))
+                else part)
+            out.append({k: _distribute(v, mesh, place[k])
                         for k, v in part.items()})
         return out
 

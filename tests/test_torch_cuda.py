@@ -1095,3 +1095,36 @@ def test_k4_k4b_through_dtensor_on_a_one_rank_nccl_mesh(cuda):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("window", [0, 512], ids=["global", "local"])
+def test_k4_k4b_custom_ops_equal_the_direct_launches(cuda, window):
+    """K4 and K4b go through ``torch.library`` custom ops (so that a
+    dispatch mode counts them): at gemma3-1b's shape (B 4, S 1,024, H 4
+    over KV 1, D 256, bfloat16) the ops' outputs, lse and gradients equal
+    the launchers called directly, bit for bit, each one launch; under
+    the counting mode one call each, with 4 D and 10 D FLOPs a live pair
+    and head."""
+    from repro_torch.launch.roofline import CountingMode
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, do = (torch.randn((4, 1024, 4, 256), generator=g, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((4, 1024, 1, 256), generator=g, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    n4, n4b = fa_ops.launches, fa_ops.bwd_launches
+    with CountingMode() as m:
+        out, lse = torch.ops.repro.flash_attention(q, k, v, None, True,
+                                                   window, True)
+        grads = torch.ops.repro.flash_attention_bwd(q, k, v, out, do, lse,
+                                                    None, True, window)
+    d_out, d_lse = fa_ops._launch(q, k, v, True, window, None, True)
+    direct = fa_ops._bwd_launch(q, k, v, d_out, do, True, window, (), d_lse,
+                                None)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches - n4, fa_ops.bwd_launches - n4b) == (2, 2)
+    assert torch.equal(out, d_out) and torch.equal(lse, d_lse)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+    pairs = 4 * fa_ops.live_pairs(1024, 1024, True, window)
+    assert m.calls == {"repro::flash_attention": 1,
+                       "repro::flash_attention_bwd": 1}
+    assert m.flops == 14 * 256 * 4 * pairs
