@@ -25,7 +25,7 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 
 
 @dataclasses.dataclass
@@ -59,6 +59,7 @@ def _report(steps, t_mm, t_poll, wall) -> OverlapReport:
 
 
 def _sync(dev: torch.device, stream=None) -> None:
+    trace.count("host_syncs")
     if dev.type == "cuda":
         (stream or torch.cuda.current_stream(dev)).synchronize()
 
@@ -86,7 +87,8 @@ def overlapped_loop(ingest: Callable, compute: Callable, feeds: List,
                     state: Any, device="cuda") -> Tuple[Any, OverlapReport]:
     """Double-buffered: ingest t+1 is issued on a side stream before the
     host blocks on compute t.  T_Poll counts only the time ingest was
-    *not* hidden."""
+    *not* hidden.  The two waits of step t are traced as
+    ``overlap.wait_compute`` and ``overlap.wait_ingest`` (request t)."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     main = torch.cuda.current_stream(dev) if cuda else None
@@ -113,10 +115,12 @@ def overlapped_loop(ingest: Callable, compute: Callable, feeds: List,
         state = compute(state, batch)              # async on main
         nxt = issue_ingest(feeds[i + 1]) if i + 1 < len(feeds) else None
         t0 = time.perf_counter()
-        _sync(dev, main)                           # wait for compute
+        with trace.span("overlap.wait_compute", request=i):
+            _sync(dev, main)                       # wait for compute
         t1 = time.perf_counter()
         if nxt is not None:
-            _sync(dev, side)                       # leftover ingest time
+            with trace.span("overlap.wait_ingest", request=i):
+                _sync(dev, side)                   # leftover ingest time
             batch = nxt
         t2 = time.perf_counter()
         t_mm += t1 - t0

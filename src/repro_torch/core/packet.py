@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 
 # ---------------------------------------------------------------------------
 # Constants (paper §IV: bimodal slot sizes; Ethernet MTU-sized frames).
@@ -100,7 +100,10 @@ class PacketBatch:
     @staticmethod
     def from_numpy(data: np.ndarray, length: np.ndarray, valid: np.ndarray,
                    device="cuda") -> "PacketBatch":
+        """The arrays copied to ``device``: on CUDA each copy from pageable
+        host memory waits for the stream (``host_syncs`` counts three)."""
         dev = resolve_device(device)
+        trace.count("host_syncs", 3)
         return PacketBatch(
             torch.as_tensor(np.asarray(data, np.uint8), device=dev),
             torch.as_tensor(np.asarray(length, np.int32), device=dev),

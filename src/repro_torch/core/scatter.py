@@ -13,13 +13,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
+
 
 def scatter_set_(dst: torch.Tensor, idx: torch.Tensor,
                  val: torch.Tensor) -> torch.Tensor:
     """In place ``dst[idx] = val`` for a 1-D ``dst``; returns ``dst``.
 
     ``idx`` and ``val`` are flattened in row-major order, which is the lane
-    order that decides repeats.  Runs without a host synchronisation.
+    order that decides repeats.  Indexing ``val`` with the 0-d ``w0``
+    reads it on the host: on CUDA one synchronisation a call
+    (``host_syncs`` counts it).
     """
     size = dst.shape[0]
     idx = idx.reshape(-1).to(torch.int64)
@@ -36,6 +40,7 @@ def scatter_set_(dst: torch.Tensor, idx: torch.Tensor,
     win_val = val[winner[tgt].clamp(min=0)]
     # dropped lanes rewrite dst[0] with the value it ends up with anyway
     w0 = winner[0]
+    trace.count("host_syncs")
     final0 = torch.where(w0 >= 0, val[w0.clamp(min=0)], dst[0])
     dst.index_put_((torch.where(keep, idx, 0),),
                    torch.where(keep, win_val, final0))

@@ -32,7 +32,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import alloc as palloc
 from repro_torch.core import handlers as H
 from repro_torch.core import her as herlib
@@ -132,6 +132,8 @@ class SpinNIC:
     ``device`` (default ``"cuda"``) is where the state lives and the step
     runs; CUDA runs kernel K1, the CPU its plain version.  Contexts that
     upload tables (the DDT contexts) must be built for the same device.
+    ``steps_run`` counts the calls of ``step`` (its spans' request); it is
+    the object's only mutable field and changes nothing it computes.
     """
 
     def __init__(self, contexts: List[H.ExecutionContext],
@@ -156,6 +158,7 @@ class SpinNIC:
         self._host_base = torch.as_tensor(
             [c.host_base for c in contexts], dtype=torch.int32,
             device=self.device)
+        self.steps_run = 0
 
     # -------------------------------------------------------------- state
     def init_state(self) -> NICState:
@@ -191,106 +194,128 @@ class SpinNIC:
         The step consumes ``state``: its ``l2`` and ``host`` buffers are
         updated in place and reused by the returned state (the JAX package
         donates them).  Use ``state.clone()`` to keep the old state.
+
+        Traced as ``spin_nic.step`` (request: the count of steps this
+        object has run), a child span per stage.
         """
+        self.steps_run += 1
+        with trace.span("spin_nic.step", request=self.steps_run):
+            return self._step(state, batch)
+
+    def _step(self, state: NICState, batch: pkt.PacketBatch):
         n = batch.n
         dev = self.device
         byte_iota = torch.arange(pkt.MTU, dtype=torch.int32, device=dev)
         l2_size = state.l2.shape[0]
 
         # (1) matching engine (kernel K1)
-        ctx_id, eom = matching.match_batch(batch, self.tables)
-        process = batch.valid & (ctx_id >= 0)
-        to_host = pkt.PacketBatch(batch.data, batch.length,
-                                  batch.valid & (ctx_id < 0))
+        with trace.span("spin_nic.match"):
+            ctx_id, eom = matching.match_batch(batch, self.tables)
+            process = batch.valid & (ctx_id >= 0)
+            to_host = pkt.PacketBatch(batch.data, batch.length,
+                                      batch.valid & (ctx_id < 0))
 
         # (2) allocator
-        alloc_state, addr, ok = palloc.alloc(state.alloc, batch.length,
-                                             process)
-        dropped = state.dropped + (process & ~ok).sum(dtype=torch.int32)
-        live = process & ok
+        with trace.span("spin_nic.alloc"):
+            alloc_state, addr, ok = palloc.alloc(state.alloc, batch.length,
+                                                 process)
+            dropped = state.dropped + (process & ~ok).sum(dtype=torch.int32)
+            live = process & ok
 
         # (3) ingress DMA into the L2 packet buffer: bytes [0, length) of
         # each live frame land at its slot address (a masked copy of one MTU
         # window per lane; live slots are disjoint and a frame fits its
         # slot, so no target repeats).  Slot geometry guarantees
         # addr + MTU <= L2_PKT_BYTES.
-        addr64 = addr.clamp(min=0).to(torch.int64)
-        window = addr64[:, None] + byte_iota[None, :]       # (N, MTU)
-        keep = live[:, None] & (byte_iota[None, :] < batch.length[:, None])
-        l2 = scatter_set_(state.l2, torch.where(keep, window, l2_size),
-                          batch.data)
+        with trace.span("spin_nic.l2_dma"):
+            addr64 = addr.clamp(min=0).to(torch.int64)
+            window = addr64[:, None] + byte_iota[None, :]       # (N, MTU)
+            keep = live[:, None] & (byte_iota[None, :]
+                                    < batch.length[:, None])
+            l2 = scatter_set_(state.l2, torch.where(keep, window, l2_size),
+                              batch.data)
 
         # (4) HER generation + scheduling (message-mode contexts only track
         #     MPQ state; packet-mode contexts always run packet handlers)
-        ctx0 = ctx_id.clamp(min=0).to(torch.int64)
-        msgful = self._msgful[ctx0] & live
-        msg_id = pkt.read_u32(batch.data, pkt.SLMP_MSGID)
-        mpq, her = herlib.generate(state.mpq, ctx_id, addr, batch.length,
-                                   msg_id, eom & msgful, msgful)
-        run_header = her.run_header & msgful
-        run_tail = her.run_tail & msgful
+        with trace.span("spin_nic.her"):
+            ctx0 = ctx_id.clamp(min=0).to(torch.int64)
+            msgful = self._msgful[ctx0] & live
+            msg_id = pkt.read_u32(batch.data, pkt.SLMP_MSGID)
+            mpq, her = herlib.generate(state.mpq, ctx_id, addr, batch.length,
+                                       msg_id, eom & msgful, msgful)
+            run_header = her.run_header & msgful
+            run_tail = her.run_tail & msgful
 
         # (5) handler execution: read the full MTU window back from L2
-        pkt_view = torch.where(live[:, None], l2[window], 0)
-        slot64 = her.slot.to(torch.int64)
+        with trace.span("spin_nic.handlers"):
+            pkt_view = torch.where(live[:, None], l2[window], 0)
+            slot64 = her.slot.to(torch.int64)
 
-        msg_state = state.msg_state
-        phase_outs = []
-        for phase, phase_mask in (("header", run_header),
-                                  ("packet", live),
-                                  ("tail", run_tail)):
-            args = H.HandlerArgs(
-                pkt=pkt_view, pkt_len=batch.length, msg_id=msg_id,
-                eom=eom, ctx=ctx_id, msg_state=msg_state[slot64],
-                cycles=state.cycles.expand(n), expect=state.expect)
-            acc = H.none_out(n, dev)
-            for c, ectx in enumerate(self.contexts):
-                fn = getattr(ectx, phase)
-                if fn is H.default_handler:
-                    continue
-                mask = phase_mask & (ctx_id == c)
-                out = H.run_phase(fn, args, ectx.user, mask)
-                acc = _select_out(acc, out, mask)
-            # message state becomes visible to the next phase
-            msg_state = msg_state.index_add(
-                0, slot64, torch.where(phase_mask[:, None],
-                                       acc.state_delta, 0))
-            phase_outs.append(acc)
+            msg_state = state.msg_state
+            phase_outs = []
+            for phase, phase_mask, name in (
+                    ("header", run_header, "spin_nic.handlers.header"),
+                    ("packet", live, "spin_nic.handlers.packet"),
+                    ("tail", run_tail, "spin_nic.handlers.tail")):
+                with trace.span(name):
+                    args = H.HandlerArgs(
+                        pkt=pkt_view, pkt_len=batch.length, msg_id=msg_id,
+                        eom=eom, ctx=ctx_id, msg_state=msg_state[slot64],
+                        cycles=state.cycles.expand(n), expect=state.expect)
+                    acc = H.none_out(n, dev)
+                    for c, ectx in enumerate(self.contexts):
+                        fn = getattr(ectx, phase)
+                        if fn is H.default_handler:
+                            continue
+                        mask = phase_mask & (ctx_id == c)
+                        out = H.run_phase(fn, args, ectx.user, mask)
+                        acc = _select_out(acc, out, mask)
+                    # message state becomes visible to the next phase
+                    msg_state = msg_state.index_add(
+                        0, slot64, torch.where(phase_mask[:, None],
+                                               acc.state_delta, 0))
+                    phase_outs.append(acc)
 
         # (6a) host DMA: one byte-granular scatter over the three phases in
         # order, so a later phase, packet or byte wins a repeated offset.
-        base = self._host_base[ctx0]
-        off = torch.cat([torch.where(o.dma_off >= 0,
-                                     base[:, None] + o.dma_off,
-                                     self.host_bytes)      # OOB -> dropped
-                         for o in phase_outs])
-        host = scatter_set_(state.host, off,
-                            torch.cat([o.dma_val for o in phase_outs]))
+        with trace.span("spin_nic.host_dma"):
+            base = self._host_base[ctx0]
+            off = torch.cat([torch.where(o.dma_off >= 0,
+                                         base[:, None] + o.dma_off,
+                                         self.host_bytes)  # OOB -> dropped
+                             for o in phase_outs])
+            host = scatter_set_(state.host, off,
+                                torch.cat([o.dma_val for o in phase_outs]))
 
         # (6b) egress arbitration (axis_arb_mux): compact all sends
-        eg_data = torch.cat([o.egress_data for o in phase_outs])
-        eg_len = torch.cat([o.egress_len for o in phase_outs])
-        eg_valid = torch.cat([o.egress_valid for o in phase_outs])
-        order = torch.argsort((~eg_valid).to(torch.uint8), stable=True)[:n]
-        egress = pkt.PacketBatch(eg_data[order], eg_len[order],
-                                 eg_valid[order])
+        with trace.span("spin_nic.egress"):
+            eg_data = torch.cat([o.egress_data for o in phase_outs])
+            eg_len = torch.cat([o.egress_len for o in phase_outs])
+            eg_valid = torch.cat([o.egress_valid for o in phase_outs])
+            order = torch.argsort((~eg_valid).to(torch.uint8),
+                                  stable=True)[:n]
+            egress = pkt.PacketBatch(eg_data[order], eg_len[order],
+                                     eg_valid[order])
 
         # (6c) counter FIFOs
-        counters, counter_count = state.counters, state.counter_count
-        for out in phase_outs:
-            counters = counters.clone()
-            counter_count = counter_count.clone()
-            for q in range(H.N_COUNTER_QUEUES):
-                sel = out.counter_queue == q
-                rank = torch.cumsum(sel.to(torch.int32), 0,
-                                    dtype=torch.int32) - 1
-                pos = torch.where(sel, (counter_count[q] + rank)
-                                  % H.COUNTER_QUEUE_LEN, H.COUNTER_QUEUE_LEN)
-                scatter_set_(counters[q], pos, out.counter_val)
-                counter_count[q] += sel.sum(dtype=torch.int32)
+        with trace.span("spin_nic.counters"):
+            counters, counter_count = state.counters, state.counter_count
+            for out in phase_outs:
+                counters = counters.clone()
+                counter_count = counter_count.clone()
+                for q in range(H.N_COUNTER_QUEUES):
+                    sel = out.counter_queue == q
+                    rank = torch.cumsum(sel.to(torch.int32), 0,
+                                        dtype=torch.int32) - 1
+                    pos = torch.where(sel, (counter_count[q] + rank)
+                                      % H.COUNTER_QUEUE_LEN,
+                                      H.COUNTER_QUEUE_LEN)
+                    scatter_set_(counters[q], pos, out.counter_val)
+                    counter_count[q] += sel.sum(dtype=torch.int32)
 
         # (6d) completion notification -> free packet-buffer slots
-        alloc_state = palloc.free(alloc_state, addr, live)
+        with trace.span("spin_nic.free"):
+            alloc_state = palloc.free(alloc_state, addr, live)
 
         new_state = NICState(
             l2=l2, alloc=alloc_state, mpq=mpq, msg_state=msg_state,
@@ -310,6 +335,7 @@ class SpinNIC:
     def read_host(self, state: NICState, base: int, nbytes: int
                   ) -> np.ndarray:
         """Host read of the DMA window (the /dev/pspin0 mmap view)."""
+        trace.count("host_syncs")
         return state.host[base:base + nbytes].cpu().numpy()
 
     def pop_counters(self, state: NICState, queue: int
@@ -318,16 +344,22 @@ class SpinNIC:
 
         Returns ``(values, state)`` where the returned state has the queue
         count cleared: a second pop yields nothing until handlers push
-        again.
+        again.  The host reads the count, and when there are entries the
+        values, and clears the count with a host value (``host_syncs``
+        counts each of the three).
         """
-        cnt = int(state.counter_count[queue])
-        if cnt == 0:
-            return np.zeros(0, np.int32), state
-        vals = state.counters[queue].cpu().numpy()
-        start = max(0, cnt - H.COUNTER_QUEUE_LEN)   # older entries overwritten
-        drained = np.array([vals[(start + i) % H.COUNTER_QUEUE_LEN]
-                            for i in range(cnt - start)], np.int32)
-        counter_count = state.counter_count.clone()
-        counter_count[queue] = 0
-        return drained, dataclasses.replace(state,
-                                            counter_count=counter_count)
+        with trace.span("spin_nic.pop_counters"):
+            trace.count("host_syncs")
+            cnt = int(state.counter_count[queue])
+            if cnt == 0:
+                return np.zeros(0, np.int32), state
+            trace.count("host_syncs")
+            vals = state.counters[queue].cpu().numpy()
+            start = max(0, cnt - H.COUNTER_QUEUE_LEN)  # older overwritten
+            drained = np.array([vals[(start + i) % H.COUNTER_QUEUE_LEN]
+                                for i in range(cnt - start)], np.int32)
+            counter_count = state.counter_count.clone()
+            trace.count("host_syncs")     # a host value copied in
+            counter_count[queue] = 0
+            return drained, dataclasses.replace(state,
+                                                counter_count=counter_count)

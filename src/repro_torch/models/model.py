@@ -87,7 +87,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -503,6 +503,8 @@ class Model:
         cache placed by ``cache_shardings`` (``init_cache(mesh=)``); a
         plain ``pos``."""
         h = L.embed_tokens(D.gather_data(params.embed), tokens)
+        if not isinstance(pos, torch.Tensor):
+            trace.count("host_syncs")       # a host value copied in
         pos = torch.as_tensor(pos, dtype=torch.int64, device=h.device)
         positions = self.decode_positions(pos, h.shape[0])
         for p, c, kind in zip(params.blocks, cache, self.kinds):

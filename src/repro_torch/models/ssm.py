@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel import dtensor as dt
@@ -81,7 +82,13 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     a  : (H,)         negative decay rates (A = -exp(a_log))
     bmat, cmat: (B, S, N) input/output projections (single group), float32
     Returns y (B, S, H, P) and the final state (B, H, N, P), float32.
+    Traced as ``ssm.chunked``.
     """
+    with trace.span("ssm.chunked"):
+        return _ssd_chunked(xh, dt, a, bmat, cmat, chunk)
+
+
+def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
     q = min(chunk, s)
@@ -198,7 +205,13 @@ def ssm_decode_init(cfg: ModelConfig, batch: int, dtype, device
 
 def ssm_apply_decode(p, cfg: ModelConfig, x, cache):
     """x: (B, 1, d_model); cache {conv (B, K-1, C), ssd (B, H, N, P)},
-    updated in place.  Returns (y (B, 1, d_model), cache)."""
+    updated in place.  Returns (y (B, 1, d_model), cache).  Traced as
+    ``ssm.decode``."""
+    with trace.span("ssm.decode"):
+        return _ssm_decode(p, cfg, x, cache)
+
+
+def _ssm_decode(p, cfg: ModelConfig, x, cache):
     b = x.shape[0]
     di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = (x @ p["in_proj"])[:, 0]                        # (B, ...)

@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models.model import Cache, Model, Params
 
 
@@ -20,6 +21,7 @@ class ServeState:
     cache: Cache
     last_tokens: torch.Tensor   # (B, 1) int64
     pos: int                    # next position to write
+    request: int = 0            # the engine's count of prefills
 
 
 class ServeEngine:
@@ -31,27 +33,35 @@ class ServeEngine:
         self.model = model
         self.params = params
         self.max_len = max_len
+        self.prefills = 0
 
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor]) -> ServeState:
-        logits, cache = self.model.prefill(self.params, batch,
-                                           max_len=self.max_len)
-        first = torch.argmax(logits, dim=-1)[:, None]
-        prompt_len = batch["tokens"].shape[1]
-        if self.model.cfg.family == "vlm":       # the image tokens come first
-            prompt_len += batch["img_embeds"].shape[1]
-        return ServeState(cache=cache, last_tokens=first, pos=prompt_len)
+        """Traced as ``serve.prefill``; its request, the count of
+        prefills, goes with the state to the decode steps."""
+        self.prefills += 1
+        with trace.span("serve.prefill", request=self.prefills):
+            logits, cache = self.model.prefill(self.params, batch,
+                                               max_len=self.max_len)
+            first = torch.argmax(logits, dim=-1)[:, None]
+            prompt_len = batch["tokens"].shape[1]
+            if self.model.cfg.family == "vlm":   # the image tokens first
+                prompt_len += batch["img_embeds"].shape[1]
+            return ServeState(cache=cache, last_tokens=first,
+                              pos=prompt_len, request=self.prefills)
 
     @torch.inference_mode()
     def step(self, state: ServeState) -> Tuple[torch.Tensor, ServeState]:
+        """Traced as ``serve.step``."""
         if state.pos >= self.max_len:
             raise ValueError(f"ServeEngine: position {state.pos} is past "
                              f"max_len {self.max_len}")
-        logits, cache = self.model.decode_step(
-            self.params, state.last_tokens, state.cache, state.pos)
-        nxt = torch.argmax(logits, dim=-1)[:, None]
-        return nxt, ServeState(cache=cache, last_tokens=nxt,
-                               pos=state.pos + 1)
+        with trace.span("serve.step", request=state.request):
+            logits, cache = self.model.decode_step(
+                self.params, state.last_tokens, state.cache, state.pos)
+            nxt = torch.argmax(logits, dim=-1)[:, None]
+            return nxt, ServeState(cache=cache, last_tokens=nxt,
+                                   pos=state.pos + 1, request=state.request)
 
     def generate(self, state: ServeState, steps: int
                  ) -> Tuple[torch.Tensor, ServeState]:

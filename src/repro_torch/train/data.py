@@ -23,7 +23,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import ddt as ddtlib
 from repro_torch.core import matching
 from repro_torch.core import packet as pkt
@@ -144,23 +144,33 @@ class SpinIngest:
             pipeline.msg_bytes // 4).to(self.device)
 
     def ingest(self, batch: pkt.PacketBatch) -> Dict[str, torch.Tensor]:
+        """Traced as ``ingest.call`` with ``ingest.match``,
+        ``ingest.reassemble`` and ``ingest.gather`` inside."""
+        with trace.span("ingest.call"):
+            return self._ingest(batch)
+
+    def _ingest(self, batch: pkt.PacketBatch) -> Dict[str, torch.Tensor]:
         pl = self.pl
         data, length = batch.data, batch.length
-        ctx, _eom = matching.match_batch(batch, self.tables)
-        live = batch.valid & (ctx == 0)
-        offsets = pkt.u32_to_i32(pkt.read_u32(data, pkt.SLMP_OFFSET))
-        plen = length - pkt.SLMP_PAYLOAD
-        lane = torch.arange(pkt.MTU, dtype=torch.int32, device=data.device)
-        msg_pos = offsets[:, None] + (lane - pkt.SLMP_PAYLOAD)[None, :]
-        ok = live[:, None] & (lane >= pkt.SLMP_PAYLOAD)[None, :] \
-            & ((lane - pkt.SLMP_PAYLOAD)[None, :] < plen[:, None])
-        dst = torch.where(ok, msg_pos, pl.msg_bytes)
-        msg = torch.zeros((pl.msg_bytes,), dtype=torch.uint8,
-                          device=data.device)
-        scatter_set_(msg, dst, data)
+        with trace.span("ingest.match"):
+            ctx, _eom = matching.match_batch(batch, self.tables)
+            live = batch.valid & (ctx == 0)
+        with trace.span("ingest.reassemble"):
+            offsets = pkt.u32_to_i32(pkt.read_u32(data, pkt.SLMP_OFFSET))
+            plen = length - pkt.SLMP_PAYLOAD
+            lane = torch.arange(pkt.MTU, dtype=torch.int32,
+                                device=data.device)
+            msg_pos = offsets[:, None] + (lane - pkt.SLMP_PAYLOAD)[None, :]
+            ok = live[:, None] & (lane >= pkt.SLMP_PAYLOAD)[None, :] \
+                & ((lane - pkt.SLMP_PAYLOAD)[None, :] < plen[:, None])
+            dst = torch.where(ok, msg_pos, pl.msg_bytes)
+            msg = torch.zeros((pl.msg_bytes,), dtype=torch.uint8,
+                              device=data.device)
+            scatter_set_(msg, dst, data)
         # DDT unpack into the app buffer and the token gather, as one
-        toks = ddt_ops.gather(msg.view(torch.int32), self.tok_idx)
-        toks = toks.reshape(pl.batch, pl.seq + 1)
+        with trace.span("ingest.gather"):
+            toks = ddt_ops.gather(msg.view(torch.int32), self.tok_idx)
+            toks = toks.reshape(pl.batch, pl.seq + 1)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
     def __call__(self, raw: PacketizedBatch) -> Dict[str, torch.Tensor]:

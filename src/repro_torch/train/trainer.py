@@ -56,6 +56,7 @@ from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import Replicate, distribute_tensor
 
+from repro_torch import trace
 from repro_torch.models.model import Model, Params
 from repro_torch.parallel import dtensor as D
 from repro_torch.parallel import sharding as shlib
@@ -162,6 +163,7 @@ def _plain(t: torch.Tensor) -> torch.Tensor:
 
 def block(t: torch.Tensor) -> None:
     """Wait until the device has computed ``t`` (``block_until_ready``)."""
+    trace.count("host_syncs")
     if t.device.type == "cuda":
         torch.cuda.current_stream(t.device).synchronize()
 
@@ -251,15 +253,18 @@ class Trainer:
         """step(params, opt_state, batch) -> (params, opt_state, metrics),
         updating ``params`` and the moments in place.  On a mesh the batch
         is placed by ``batch_example``'s specs where it is given (JAX's
-        ``in_shardings``), else by the batch's own."""
+        ``in_shardings``), else by the batch's own.  Traced as
+        ``trainer.step`` with ``trainer.forward`` and ``trainer.backward``
+        (each microbatch's) and ``trainer.optimizer`` inside."""
         model, ocfg, tcfg = self.model, self.opt_cfg, self.tcfg
 
         def grads_of(leaves, params, batch):
-            loss, metrics = model.loss_fn(params, batch)
-            return loss, metrics, torch.autograd.grad(loss, leaves)
+            with trace.span("trainer.forward"):
+                loss, metrics = model.loss_fn(params, batch)
+            with trace.span("trainer.backward"):
+                return loss, metrics, torch.autograd.grad(loss, leaves)
 
-        def step(params: Params, opt_state: opt.OptState,
-                 batch: Dict[str, torch.Tensor]):
+        def step_body(params, opt_state, batch):
             mb = tcfg.microbatches
             b = batch["tokens"].shape[0]
             if b % mb:
@@ -293,8 +298,15 @@ class Trainer:
                 loss, metrics, grads = grads_of(leaves, params, parts[0])
                 grads, loss = list(grads), loss.detach()
             metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
-            _, opt_state, om = opt.apply_updates(tree, opt_state, grads, ocfg)
+            with trace.span("trainer.optimizer"):
+                _, opt_state, om = opt.apply_updates(tree, opt_state, grads,
+                                                     ocfg)
             return params, opt_state, dict(metrics, loss=_plain(loss), **om)
+
+        def step(params: Params, opt_state: opt.OptState,
+                 batch: Dict[str, torch.Tensor]):
+            with trace.span("trainer.step"):
+                return step_body(params, opt_state, batch)
 
         self._step_fn = step
         return step
