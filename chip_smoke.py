@@ -10,7 +10,8 @@ and nothing of the JAX package ``repro``.  Phases:
   1. the card's name and power limit; build every kernel from the
      checkout's sources (one nvcc per library, all started together: the
      kernels, K4b's planted-fault variant, and an empty kernel for the
-     launch floor); K1 and K2 must compile with
+     launch floor; K5 and its planted-fault variant too); K1 and K2 must
+     compile with
      no stack frame (K1's register array stays in registers); K3 must
      compile with no spills; K4 must be the warp-specialised Hopper
      kernel: its ptxas report shows no spills and no ignored
@@ -75,7 +76,8 @@ and nothing of the JAX package ``repro``.  Phases:
      each freed before the next: batch 4, 32 greedy tokens, a 2,048-token
      prompt (recurrentgemma-9b's 4,096, so that its window cuts and the
      local ring wraps), twice.  K4 runs once per attn/local layer of the
-     prefill (24, 12, 0) and never in decode; the tokens lie in the vocab
+     prefill (24, 12, 0) and never in decode, K5 twice a ssm layer in each
+     decode step and never in the prefill; the tokens lie in the vocab
      and agree between the runs.  K4 on qwen2-moe's layer 0 (global, D
      128, H = KV = 16) and recurrentgemma's layer 2 (local, D 256, H 16
      over KV 1) agrees with its plain version, and the planted faults
@@ -221,7 +223,10 @@ and nothing of the JAX package ``repro``.  Phases:
      layer at the path's and the ragged enc_len, SDPA with a boolean mask
      there, and qwen2-vl's layer 0); K4b the same way on phase 5g's held
      calls (``train_shapes``, with its launches on the three train
-     paths);
+     paths); K5 (mamba2's SSD decode mixer) at the serve cell's layer
+     (batch 16, bfloat16) against its plain version over 4 steps, each of
+     its planted faults failing that check, then timed beside its bytes
+     bound and the plain version (``phase_k5``);
      K1, K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
@@ -243,6 +248,7 @@ of standard output are the ``kernels`` JSON object and the result JSON.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import sys
@@ -1614,6 +1620,7 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
     error})."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.kernels.ssm_decode import ops as k5
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()        # what earlier phases hold
     t0 = time.perf_counter()
@@ -1649,19 +1656,19 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
         if run == 1:
             k4.flash_attention = recording
         try:
-            k4.launches = 0
+            k4.launches = k5.launches = 0
             request = {k: t.clone() for k, t in batch.items()}  # as new
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state = engine.prefill(request)
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t0
-            n_pre = k4.launches
+            n_pre, k5_pre = k4.launches, k5.launches
             t0 = time.perf_counter()
             toks, state = engine.generate(state, SERVE_GEN)
             torch.cuda.synchronize()
             t_dec = time.perf_counter() - t0
-            n_dec = k4.launches - n_pre
+            n_dec, k5_dec = k4.launches - n_pre, k5.launches - k5_pre
             launched += k4.launches
         finally:
             k4.flash_attention = plain_call
@@ -1669,6 +1676,12 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
             raise AssertionError(f"{arch}: K4 ran {n_pre} times in prefill "
                                  f"and {n_dec} in decode, not "
                                  f"{len(want_calls)} and 0")
+        # K5: twice a ssm layer in each decode step, never in the prefill
+        want_k5 = 2 * (SERVE_GEN - 1) * model.kinds.count("ssm")
+        if (k5_pre, k5_dec) != (0, want_k5):
+            raise AssertionError(f"{arch}: K5 ran {k5_pre} times in prefill "
+                                 f"and {k5_dec} in decode, not 0 and "
+                                 f"{want_k5}")
         toks = toks.cpu()
         if toks.shape != (SERVE_BATCH, SERVE_GEN) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab:
@@ -1680,7 +1693,8 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
             f"{SERVE_BATCH * prompt / t_pre:.0f} prompt tokens/s); decode "
             f"{t_dec / steps * 1e3:.3f} ms/token over {steps} steps "
             f"({SERVE_BATCH * steps / t_dec:.1f} tokens/s at batch "
-            f"{SERVE_BATCH}); K4 launches {n_pre} in prefill, {n_dec} in "
+            f"{SERVE_BATCH}); K5 launches {k5_dec} in decode; K4 launches "
+            f"{n_pre} in prefill, {n_dec} in "
             f"decode (host clock, synchronized); max_memory_allocated "
             f"{peak} B, {(peak - held) / 1e9:.2f} GB above what earlier "
             f"phases hold")
@@ -3328,6 +3342,141 @@ def phase_kernels(dev, launches, spin, reqs, captured, k4_errs, empty,
     return out
 
 
+# Phase 6, K5: mamba2's SSD decode mixer at the serve cell's shapes
+# (mamba2-780m at batch 16, bfloat16; the benchmark's eps), on a layer
+# drawn on the card from seed 0 with caches holding a random window and
+# state.  The check, over K5_STEPS steps that carry the state from the
+# same caches, holds the kernel to its plain version on the card as
+# tests/test_torch_cuda.py does (the window exact; the output by row error
+# within K5_ROW_TOL; the state within K5_STATE_REL of its largest |value|:
+# bfloat16 roundings that the sums' order moves by one step), and each
+# planted fault of ``ssm_decode_faults`` must fail it.
+K5_BATCH = 16
+K5_EPS = 1e-5
+K5_STEPS = 4
+K5_LAYERS = 4          # layers' caches timed in turn: 100 MB, twice the L2
+K5_ROW_TOL = 0.1
+K5_STATE_REL = 1e-2
+
+
+def phase_k5(dev):
+    """Phase 6, K5: held to its plain version with planted faults, then
+    timed at the serve cell's shapes beside its bytes bound and the plain
+    version.  Returns its entry of the ``kernels`` line."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ref import row_error
+    from repro_torch.kernels.ssm_decode import ops as k5, ref as k5ref
+    from repro_torch.models import ssm
+    cfg = configs.get_config("mamba2-780m")
+    b, nh, ns, hd = K5_BATCH, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    di, k, ch = cfg.d_inner, cfg.conv_width, cfg.d_inner + 2 * ns
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = ssm.ssm_init(g, cfg)
+    cache = ssm.ssm_decode_init(cfg, b, torch.bfloat16, dev)
+    cache["conv"].copy_(torch.randn(cache["conv"].shape, generator=g,
+                                    device=dev))
+    cache["ssd"].copy_(0.5 * torch.randn(cache["ssd"].shape, generator=g,
+                                         device=dev))
+    projs = [(torch.randn((b, 1, cfg.d_model), generator=g, device=dev,
+                          dtype=torch.bfloat16) @ p["in_proj"])[:, 0]
+             for _ in range(K5_STEPS)]
+    params = [p[n] for n in ("conv_w", "conv_b", "dt_bias", "a_log",
+                             "d_skip", "norm")]
+
+    def steps(mixer):
+        c = {n: t.clone() for n, t in cache.items()}
+        out = []
+        for proj in projs:
+            y = mixer(proj, c["conv"], c["ssd"], *params, K5_EPS)
+            out.append((y, c["conv"].clone(), c["ssd"].clone()))
+        return out
+
+    def errors(got, want):
+        return [(row_error(x[0], w[0]), torch.equal(x[1], w[1]),
+                 ((x[2] - w[2]).abs().max() / w[2].abs().max()).item())
+                for x, w in zip(got, want)]
+
+    want = steps(k5ref.ssm_decode_mixer_ref)
+    before = k5.launches
+    errs = errors(steps(k5.ssm_decode_mixer), want)
+    torch.cuda.synchronize()
+    if k5.launches - before != 2 * K5_STEPS:
+        raise AssertionError(f"K5: {k5.launches - before} launches over "
+                             f"{K5_STEPS} steps")
+    row = max(e[0] for e in errs)
+    state = max(e[2] for e in errs)
+    log(f"[6] K5 (B {b}, H {nh}, N {ns}, P {hd}, bfloat16) against its "
+        f"plain version over {K5_STEPS} steps: row error "
+        f"{[round(e[0], 5) for e in errs]} (limit {K5_ROW_TOL}), window "
+        f"equal {[e[1] for e in errs]}, state error "
+        f"{[f'{e[2]:.2e}' for e in errs]} (limit {K5_STATE_REL})")
+    if not all(e[1] for e in errs) or row > K5_ROW_TOL \
+            or state > K5_STATE_REL:
+        raise AssertionError(f"K5 against its plain version: {errs}")
+    faults = {}
+    for fault in (1, 2, 3):
+        fe = errors(steps(lambda *a: k5.ssm_decode_mixer_planted(
+            *a, fault=fault)), want)
+        caught = (max(e[0] for e in fe) > K5_ROW_TOL
+                  or not all(e[1] for e in fe)
+                  or max(e[2] for e in fe) > K5_STATE_REL)
+        faults[fault] = (max(e[0] for e in fe), all(e[1] for e in fe),
+                         max(e[2] for e in fe))
+        log(f"[6] K5 planted fault {fault}: row error {faults[fault][0]:.4f}, "
+            f"window equal {faults[fault][1]}, state error "
+            f"{faults[fault][2]:.2e}: {'caught' if caught else 'MISSED'}")
+        if not caught:
+            raise AssertionError(f"K5 planted fault {fault} passed the check")
+
+    # timing on cold state, as a decode step meets it (48 layers' state,
+    # 1.2 GB, pass through the 50 MB L2): K5_LAYERS layers' caches in
+    # turn.  Bytes: each input read once, each output written once, the
+    # state read and written
+    nbytes = (2 * b * nh * ns * hd * 4                 # state
+              + b * (di + ch + nh) * 2                 # proj
+              + 2 * b * (k - 1) * ch * 2               # conv window
+              + (k * ch + ch + di) * 2 + 3 * nh * 4    # parameters
+              + b * di * 2)                            # output
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    layers = [{n: t.clone() for n, t in cache.items()}
+              for _ in range(K5_LAYERS)]
+    turn = itertools.count()
+
+    def in_turn(mixer):
+        def call():
+            c = layers[next(turn) % K5_LAYERS]
+            return mixer(projs[0], c["conv"], c["ssd"], *params, K5_EPS)
+        return call
+
+    ms, host = time_ms(in_turn(k5.ssm_decode_mixer), per_run=48)
+    plain, phost = time_ms(in_turn(k5ref.ssm_decode_mixer_ref), runs=11,
+                           per_run=8)
+    ms2, host2 = time_ms(in_turn(k5.ssm_decode_mixer), per_run=48)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call = in_turn(k5.ssm_decode_mixer)
+        for _ in range(4 * K5_LAYERS):
+            call()
+        torch.cuda.synchronize()
+    split = {e.key.split("<")[0].split()[-1]: e.device_time_total / e.count
+             for e in prof.key_averages()
+             if e.count and "_kernel" in e.key}
+    log(f"[6] K5 at the serve cell's layer, state cold ({K5_LAYERS} layers' "
+        f"caches in turn): {ms * 1e3:.3f} / {ms2 * 1e3:.3f} us (issued in "
+        f"{host * 1e3:.2f} / {host2 * 1e3:.2f} us, two launches); under "
+        f"the profiler {({n: round(us, 2) for n, us in split.items()})} "
+        f"us; bound {bound * 1e3:.3f} us by bytes ({nbytes} B, "
+        f"{bound / ms * 100:.1f} %); plain {plain * 1e3:.3f} us (issued in "
+        f"{phost * 1e3:.2f} us)")
+    return dict(name="ssm_decode", route="cuda",
+                source="src/repro_torch/kernels/ssm_decode/ssm_decode.cu",
+                replaces=None, max_row_err=row, max_state_err=state,
+                ms=ms, ms_again=ms2, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes", library_ms=None, host_ms=host,
+                plain_host_ms=phost, kernel_us=split, planted_faults=faults)
+
+
 def phase_dryrun(dev):
     """Phase 5j: the dry run's cells on the card, then one train step's
     counts, real against fake, and its roofline floor against its time
@@ -3537,6 +3686,7 @@ def main() -> int:
     kernels = phase_kernels(dev, launches, spin, reqs, captured, k4_errs,
                             empty, captured_bwd, k4b_err, fam_captured,
                             modal_captured, family_captured)
+    kernels.append(phase_k5(dev))
     del captured_bwd, fam_captured, modal_captured, family_captured
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the

@@ -11,7 +11,7 @@ process that finds the library built still has its ptxas report.
 ``chip_smoke.py`` calls up front.  A library in ``DEFINES`` is a variant
 of another's source built with extra macros: ``flash_attention_bwd_faults``
 is K4b with the planted faults that the checks must catch, kept out of
-the shipped kernel.
+the shipped kernel, and ``ssm_decode_faults`` K5 with its.
 
 Nothing here runs when the package is imported.
 """
@@ -37,8 +37,11 @@ SOURCES = {
                             / "flash_attention_bwd.cu"),
     "flash_attention_bwd_faults": (KERNELS_DIR / "flash_attention"
                                    / "flash_attention_bwd.cu"),
+    "ssm_decode": KERNELS_DIR / "ssm_decode" / "ssm_decode.cu",
+    "ssm_decode_faults": KERNELS_DIR / "ssm_decode" / "ssm_decode.cu",
 }
-DEFINES = {"flash_attention_bwd_faults": ["-DREPRO_K4B_PLANTED_FAULTS"]}
+DEFINES = {"flash_attention_bwd_faults": ["-DREPRO_K4B_PLANTED_FAULTS"],
+           "ssm_decode_faults": ["-DREPRO_K5_PLANTED_FAULTS"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

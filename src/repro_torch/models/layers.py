@@ -85,6 +85,15 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return (x * scale.to(torch.float32)).to(orig)
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """mamba2's gated RMS norm: ``y * silu(z)`` normalised over the last
+    dim in float32, cast back to ``y``'s dtype, then scaled."""
+    y = y * F.silu(z)
+    var = y.to(torch.float32).square().mean(-1, keepdim=True)
+    return (y.to(torch.float32) * torch.rsqrt(var + eps)).to(y.dtype) * scale
+
+
 # -------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     """float64, as the JAX package computes them."""

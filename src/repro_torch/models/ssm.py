@@ -11,7 +11,8 @@ The JAX package contracts three operands at once (``bcij,bcijh,bcjhp``);
 here each such product is two steps, an element-wise product and a
 batched matrix product over (batch, chunk, head), so no (B, nc, Q, Q, H,
 P) tensor is formed.  Decode carries ``{"conv", "ssd"}`` and updates them
-in place.
+in place; its mixer between the two projections is K5
+(``kernels/ssm_decode``), the same arithmetic in two CUDA launches.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch import nn
 
 from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssm_decode import ops as K5
 from repro_torch.models import layers as L
 from repro_torch.parallel import dtensor as dt
 
@@ -66,12 +68,6 @@ def _causal_conv(xbc, w, b):
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(k))
     return F.silu(out + b)
-
-
-def _gated_norm(y, z, scale, eps):
-    y = y * F.silu(z)
-    var = y.to(torch.float32).square().mean(-1, keepdim=True)
-    return (y.to(torch.float32) * torch.rsqrt(var + eps)).to(y.dtype) * scale
 
 
 def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
@@ -185,7 +181,7 @@ def _mixer(cfg: ModelConfig, with_state: bool, proj, conv_w, conv_b,
     y, final = ssd_chunked(xs, dt, a, bmat, cmat, cfg.ssm_chunk)
     y = y + d_skip[None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(b, s, di).to(proj.dtype)
-    out = _gated_norm(y, z, norm, cfg.norm_eps)
+    out = L.gated_norm(y, z, norm, cfg.norm_eps)
     if not with_state:
         return out, None, None
     k = conv_w.shape[0]
@@ -212,25 +208,22 @@ def ssm_apply_decode(p, cfg: ModelConfig, x, cache):
 
 
 def _ssm_decode(p, cfg: ModelConfig, x, cache):
+    """The mixer between the two projections is K5 (``kernels/
+    ssm_decode``) on CUDA, its plain version on the CPU.  On DTensors it
+    runs on each rank's local batch rows, a cache placed otherwise than
+    ``proj`` (the SSD heads split over ``model``) gathered for it and
+    written back."""
     b = x.shape[0]
-    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = (x @ p["in_proj"])[:, 0]                        # (B, ...)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
-    win = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
-    conv = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"])
-                  + p["conv_b"])
-    xs = conv[..., :di].reshape(b, nh, cfg.ssm_head_dim)
-    bmat = conv[..., di:di + ns].to(torch.float32)
-    cmat = conv[..., di + ns:].to(torch.float32)
-    dt = L.softplus(dt_raw.to(torch.float32) + p["dt_bias"])   # (B, H)
-    dec = torch.exp(dt * -torch.exp(p["a_log"]))
-    xf = xs.to(torch.float32)
-    upd = bmat[:, None, :, None] * (dt[..., None] * xf)[:, :, None, :]
-    s_new = cache["ssd"] * dec[..., None, None] + upd
-    y = torch.einsum("bn,bhnp->bhp", cmat, s_new)
-    y = y + p["d_skip"][None, :, None] * xf
-    y = y.reshape(b, 1, di).to(x.dtype)
-    y = _gated_norm(y, z[:, None, :], p["norm"], cfg.norm_eps)
-    cache["conv"].copy_(win[:, 1:])
-    cache["ssd"].copy_(s_new)
-    return y @ p["out_proj"], cache
+    caches = [cache["conv"], cache["ssd"]]
+    rows = [c.redistribute(proj.device_mesh, proj.placements)
+            if dt.is_dt(c) and c.placements != proj.placements else c
+            for c in caches]
+    y = dt.local_call(functools.partial(K5.ssm_decode_mixer,
+                                        eps=cfg.norm_eps),
+                      proj, *rows, p["conv_w"], p["conv_b"], p["dt_bias"],
+                      p["a_log"], p["d_skip"], p["norm"], like=proj)
+    for c, r in zip(caches, rows):
+        if r is not c:
+            c.copy_(r)
+    return y.reshape(b, 1, cfg.d_inner) @ p["out_proj"], cache

@@ -1,8 +1,9 @@
 """The PyTorch port on an NVIDIA GPU: the CUDA kernels K1 (matcher, both
 forms), K2 (DDT gather, both bodies), K3 (checksum), K4 (flash
-attention, with the lse it writes for K4b; tolerance at ``LSE_ATOL``) and
-K4b (its backward; tolerances at ``K4B_REL``) against their plain
-versions, a small train step on the card against the CPU,
+attention, with the lse it writes for K4b; tolerance at ``LSE_ATOL``),
+K4b (its backward; tolerances at ``K4B_REL``) and K5 (mamba2's SSD
+decode mixer, with its planted faults; tolerances at ``K5_ROW_TOL``)
+against their plain versions, a small train step on the card against the CPU,
 ``SpinNIC.step`` / ``SpinIngest`` on CUDA against the same calls on the
 CPU, the serving path's kernel launches, the moe, ssm and hybrid
 layers (``moe_apply`` routing, drops and outputs, a bfloat16
@@ -43,6 +44,9 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.matcher import ops as match_ops  # noqa: E402
 from repro_torch.kernels.matcher.ref import (  # noqa: E402
     match_first_ref, match_ref)
+from repro_torch.kernels.ssm_decode import ops as k5_ops  # noqa: E402
+from repro_torch.kernels.ssm_decode.ref import (  # noqa: E402
+    ssm_decode_mixer_ref)
 from repro_torch.train import data as tdata  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1128,3 +1132,167 @@ def test_k4_k4b_custom_ops_equal_the_direct_launches(cuda, window):
     assert m.calls == {"repro::flash_attention": 1,
                        "repro::flash_attention_bwd": 1}
     assert m.flops == 14 * 256 * 4 * pairs
+
+
+# ------------------------------------------------ K5: the SSD decode mixer
+K5_PARAMS = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm")
+K5_CASES = [  # config, batch, dtype
+    ("mamba2-780m", 16, "bfloat16"),        # a layer of the serve cell
+    ("mamba2-780m", 3, "float32"),
+    ("mamba2-smoke", 3, "bfloat16"),
+    ("mamba2-smoke", 1, "float32"),
+]
+# K5 against its plain version on the card, over 4 steps that carry the
+# state.  The conv window is data movement: exact.  The output, by
+# ``row_error`` (a row's largest error over its RMS): the sums over the
+# state (N terms) and the norm's over d_inner run in another order, and
+# the conv's 4 taps too; in bfloat16 that moves a rounding to bfloat16 by
+# one step (2**-8 of a value) now and then, which the gate, the norm and
+# the next steps carry: a few hundredths of a row's RMS at most; float32
+# about 1e-6.  The state, by its largest error over its largest |value|:
+# a conv output one bfloat16 step apart moves that element's update by
+# 2**-8 of it, so 1e-2 in bfloat16; float32 1e-5.
+K5_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+K5_STATE_REL = {"bfloat16": 1e-2, "float32": 1e-5}
+
+
+def ssm_decode_inputs(cfg, batch, seed, steps=4):
+    """A mamba2 decode layer on the CPU, from ``seed``: its parameters
+    (``ssm_init``, with the conv bias, norm scale and D drawn away from
+    their constant initial values), caches holding a random window and
+    state, and ``steps`` inputs (steps, B, 1, d_model)."""
+    from repro_torch.models import layers, ssm
+    dt = layers.dtype_of(cfg.dtype)
+    g = torch.Generator().manual_seed(seed)
+    p = {k: v.detach() for k, v in ssm.ssm_init(g, cfg).items()}
+    p["conv_b"] = (0.2 * torch.randn(p["conv_b"].shape, generator=g)).to(dt)
+    p["norm"] = (1 + 0.2 * torch.randn(p["norm"].shape, generator=g)).to(dt)
+    p["d_skip"] = 1 + 0.2 * torch.randn(p["d_skip"].shape, generator=g)
+    cache = ssm.ssm_decode_init(cfg, batch, dt, "cpu")
+    cache["conv"].copy_(torch.randn(cache["conv"].shape, generator=g))
+    cache["ssd"].copy_(0.5 * torch.randn(cache["ssd"].shape, generator=g))
+    x = torch.randn((steps, batch, 1, cfg.d_model), generator=g).to(dt)
+    return p, cache, x
+
+
+def k5_args(p, cache, x):
+    """The mixer's arguments for one step of input x (B, 1, d_model)."""
+    return ((x @ p["in_proj"])[:, 0], cache["conv"], cache["ssd"],
+            *(p[k] for k in K5_PARAMS))
+
+
+def k5_cfg(name, dtype):
+    import dataclasses
+    from repro_torch import configs
+    cfg = (configs.get_smoke_config("mamba2-780m") if name == "mamba2-smoke"
+           else configs.get_config(name))
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _k5_steps(cfg, batch, seed, device, mixer):
+    """Each step's (output, conv window, state) through ``mixer``."""
+    p, cache, xs = ssm_decode_inputs(cfg, batch, seed)
+    p = {k: v.to(device) for k, v in p.items()}
+    cache = {k: v.to(device) for k, v in cache.items()}
+    out = []
+    for x in xs.to(device):
+        y = mixer(*k5_args(p, cache, x), cfg.norm_eps)
+        out.append((y, cache["conv"].clone(), cache["ssd"].clone()))
+    return out
+
+
+def _k5_errors(got, want):
+    """Per step: (row error of the output, conv window equal, the state's
+    largest error over its largest |value|)."""
+    return [(row_error(g[0], w[0]), torch.equal(g[1], w[1]),
+             ((g[2] - w[2]).abs().max() / w[2].abs().max()).item())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", K5_CASES, ids=lambda c: str(c))
+def test_ssm_decode_kernel_vs_plain(cuda, case):
+    """K5 and its plain version on the card from the same layer and
+    caches, 4 steps each: two launches a step; tolerances at
+    ``K5_ROW_TOL``."""
+    name, batch, dtype = case
+    cfg = k5_cfg(name, dtype)
+    want = _k5_steps(cfg, batch, 1, cuda, ssm_decode_mixer_ref)
+    before = k5_ops.launches
+    got = _k5_steps(cfg, batch, 1, cuda, k5_ops.ssm_decode_mixer)
+    torch.cuda.synchronize()
+    assert k5_ops.launches - before == 2 * len(want)
+    for step, (row, conv, state) in enumerate(_k5_errors(got, want)):
+        assert got[step][0].dtype == want[step][0].dtype
+        assert conv, f"step {step}: conv window"
+        assert row <= K5_ROW_TOL[dtype], f"step {step}: row error {row}"
+        assert state <= K5_STATE_REL[dtype], f"step {step}: state {state}"
+
+
+@pytest.mark.parametrize("fault", [1, 2, 3])
+@pytest.mark.parametrize("case", [K5_CASES[0], K5_CASES[3]],
+                         ids=lambda c: str(c))
+def test_ssm_decode_planted_faults_fail(cuda, case, fault):
+    """Each planted fault fails the check that the sound kernel passes:
+    1 (each head's last state row left as it was) the state's, 2 (the B/C
+    channels' window left unshifted) the conv window's, 3 (y's D x skip
+    left out) the output's."""
+    name, batch, dtype = case
+    cfg = k5_cfg(name, dtype)
+    want = _k5_steps(cfg, batch, 1, cuda, ssm_decode_mixer_ref)
+    got = _k5_steps(cfg, batch, 1, cuda, lambda *a: (
+        k5_ops.ssm_decode_mixer_planted(*a, fault=fault)))
+    errs = _k5_errors(got, want)
+    if fault == 1:
+        assert max(e[2] for e in errs) > K5_STATE_REL[dtype], errs
+    elif fault == 2:
+        assert not all(e[1] for e in errs), errs
+    else:
+        assert max(e[0] for e in errs) > K5_ROW_TOL[dtype], errs
+
+
+def test_ssm_decode_raises_on_shapes_the_kernel_does_not_take(cuda):
+    """On CUDA a head dim that is not a power of two from 4 to 1,024, and
+    float16, raise naming what they are."""
+    import dataclasses
+    cfg = dataclasses.replace(k5_cfg("mamba2-smoke", "float32"),
+                              ssm_head_dim=6, d_inner=48)
+    p, cache, xs = ssm_decode_inputs(cfg, 2, 0)
+    p = {k: v.to(cuda) for k, v in p.items()}
+    cache = {k: v.to(cuda) for k, v in cache.items()}
+    with pytest.raises(ValueError, match="head dim 6"):
+        k5_ops.ssm_decode_mixer(*k5_args(p, cache, xs[0].to(cuda)), 1e-5)
+    cfg = k5_cfg("mamba2-smoke", "float32")
+    p, cache, xs = ssm_decode_inputs(cfg, 2, 0)
+    half = {k: v.to(cuda, torch.float16) for k, v in p.items()}
+    for k in ("dt_bias", "a_log", "d_skip"):
+        half[k] = p[k].to(cuda)
+    cache = {"conv": cache["conv"].to(cuda, torch.float16),
+             "ssd": cache["ssd"].to(cuda)}
+    with pytest.raises(ValueError, match="float16"):
+        k5_ops.ssm_decode_mixer(
+            *k5_args(half, cache, xs[0].to(cuda, torch.float16)), 1e-5)
+
+
+def test_serving_path_launches_k5_per_layer(cuda):
+    """mamba2-smoke served on the card (float32): K5 twice a layer in each
+    decode step and never in the prefill; the greedy tokens equal the
+    CPU's."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = k5_cfg("mamba2-smoke", "float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    cpu_params.load_state_dict(params.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 20)))
+    eng, ceng = ServeEngine(model, params, 32), ServeEngine(model,
+                                                            cpu_params, 32)
+    before = k5_ops.launches
+    st = eng.prefill({"tokens": tokens.to(cuda)})
+    assert k5_ops.launches == before
+    toks, _ = eng.generate(st, 8)
+    torch.cuda.synchronize()
+    assert k5_ops.launches - before == 7 * 2 * cfg.n_layers
+    ctoks, _ = ceng.generate(ceng.prefill({"tokens": tokens}), 8)
+    assert torch.equal(toks.cpu(), ctoks)

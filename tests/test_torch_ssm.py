@@ -13,6 +13,8 @@ Tolerances:
 * float32 block and model: layers 1e-5, logits 1e-4 (atol and rtol),
   greedy tokens equal; ``loss_fn`` 1e-5 relative and every gradient 1e-5
   absolute plus 1e-4 relative, under remat "none" and "dots".
+* The decode mixer's wrapper (K5's CPU path) against the unfused
+  sequence the port ran before it: bit for bit (the same arithmetic).
 * One bfloat16 prefill: logits atol 0.1, against logits of standard
   deviation about 1; both round activations to bfloat16 at different
   places (XLA fuses across ops, and decides the order of the einsums'
@@ -27,8 +29,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models import ssm as jS  # noqa: E402
+from repro_torch.kernels.ssm_decode import ops as K5  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import ssm as tS  # noqa: E402
+from test_torch_cuda import k5_cfg, k5_args, ssm_decode_inputs  # noqa: E402,E501
 from test_torch_models import _cfgs, _f32, _model_pair, _prompt, serve_vs_jax  # noqa: E402,E501
 from test_torch_moe import loss_vs_jax, serve_cli  # noqa: E402
 
@@ -109,6 +113,94 @@ def test_ssm_block_train_state_and_decode_vs_jax(s):
         np.testing.assert_allclose(_f32(cache["ssd"]), _f32(jst["ssd"]),
                                    atol=F32_TOL, rtol=F32_TOL)
     assert cache["ssd"] is ssd_buf
+
+
+def _unfused_decode(p, cfg, x, cache):
+    """The decode step as the port computed it before K5, expression for
+    expression: (the gated norm's output (B, 1, di), the block's output);
+    both caches updated in place."""
+    import torch.nn.functional as F
+    b = x.shape[0]
+    di, ns, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    proj = (x @ p["in_proj"])[:, 0]
+    z, xbc, dt_raw = (proj[..., :di], proj[..., di:2 * di + 2 * ns],
+                      proj[..., 2 * di + 2 * ns:])
+    win = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
+    conv = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"])
+                  + p["conv_b"])
+    xs = conv[..., :di].reshape(b, nh, cfg.ssm_head_dim)
+    bmat = conv[..., di:di + ns].to(torch.float32)
+    cmat = conv[..., di + ns:].to(torch.float32)
+    dt = dt_raw.to(torch.float32) + p["dt_bias"]
+    dt = torch.logaddexp(dt, dt.new_zeros(()))
+    dec = torch.exp(dt * -torch.exp(p["a_log"]))
+    xf = xs.to(torch.float32)
+    upd = bmat[:, None, :, None] * (dt[..., None] * xf)[:, :, None, :]
+    s_new = cache["ssd"] * dec[..., None, None] + upd
+    y = torch.einsum("bn,bhnp->bhp", cmat, s_new)
+    y = y + p["d_skip"][None, :, None] * xf
+    y = y.reshape(b, 1, di).to(x.dtype)
+    y = y * F.silu(z[:, None, :])
+    var = y.to(torch.float32).square().mean(-1, keepdim=True)
+    y = (y.to(torch.float32) * torch.rsqrt(var + cfg.norm_eps)
+         ).to(y.dtype) * p["norm"]
+    cache["conv"].copy_(win[:, 1:])
+    cache["ssd"].copy_(s_new)
+    return y, y @ p["out_proj"]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("name, dtype", [("mamba2-smoke", "bfloat16"),
+                                         ("mamba2-780m", "bfloat16"),
+                                         ("mamba2-smoke", "float32")])
+def test_decode_mixer_on_the_cpu_equals_the_unfused_sequence(name, dtype,
+                                                             batch):
+    """``ssm_decode_mixer`` on CPU tensors, and ``ssm_apply_decode``
+    through it, against the unfused sequence over 4 steps that carry
+    state (at the smoke width and at one 780m-wide layer): outputs and
+    both caches bit for bit, the caches updated in place."""
+    cfg = k5_cfg(name, dtype)
+    p, cache, xs = ssm_decode_inputs(cfg, batch, seed=batch)
+    old, mix = ({k: v.clone() for k, v in cache.items()} for _ in range(2))
+    held = {k: (v, v.data_ptr()) for k, v in mix.items()}
+    start = cache["ssd"].clone()
+    with torch.inference_mode():
+        for x in xs:
+            want_y, want_out = _unfused_decode(p, cfg, x, old)
+            y = K5.ssm_decode_mixer(*k5_args(p, mix, x), cfg.norm_eps)
+            out, blk = tS.ssm_apply_decode(p, cfg, x, cache)
+            assert blk is cache
+            assert torch.equal(y, want_y[:, 0])
+            assert torch.equal(out, want_out)
+            for k in old:
+                assert torch.equal(mix[k], old[k]), k
+                assert torch.equal(cache[k], old[k]), k
+    assert not torch.equal(old["ssd"], start)
+    for k, (t, ptr) in held.items():
+        assert mix[k] is t and t.data_ptr() == ptr, k
+
+
+@pytest.mark.parametrize("bad", ["dtype", "state_shape", "non_contiguous"])
+def test_decode_mixer_raises_on_bad_inputs(bad):
+    """A float32 state the wrapper was handed as bfloat16, a state of the
+    wrong shape (N 17 for the projection's 16) and a conv cache that is
+    not contiguous raise, naming what is wrong."""
+    cfg = k5_cfg("mamba2-smoke", "bfloat16")
+    p, cache, xs = ssm_decode_inputs(cfg, 2, seed=0)
+    args = list(k5_args(p, cache, xs[0]))
+    if bad == "dtype":
+        args[2] = args[2].to(torch.bfloat16)
+    elif bad == "state_shape":
+        b, h, n, d = args[2].shape
+        args[2] = torch.zeros((b, h, n + 1, d))
+    else:
+        b, k, c = args[1].shape
+        args[1] = torch.zeros((b, c, k), dtype=args[1].dtype).transpose(1, 2)
+    match = {"dtype": "ssd_cache is torch.bfloat16",
+             "state_shape": "do not fit H 8, N 17, P 16", "non_contiguous":
+             "conv_cache must be contiguous"}[bad]
+    with pytest.raises(ValueError, match=match):
+        K5.ssm_decode_mixer(*args, cfg.norm_eps)
 
 
 def test_params_from_numpy_keeps_float32_leaves():
