@@ -86,7 +86,11 @@ and nothing of the JAX package ``repro``.  Phases:
      and on the CPU from the same weights: the MoE layers must choose the
      same experts, and the logits agree within FAMILY_LOGIT_ATOL.
      Prints parameters, bytes, peak device memory, prefill ms, prompt
-     tokens/s and decode ms/token;
+     tokens/s and decode ms/token.  Last the published Qwen1.5-MoE-A2.7B
+     (PUBLISHED_MOE, the qwen2-moe serving cell's model: dropless, top-4
+     weights as they are, the gated shared expert) the same way, with K6
+     launched twice a layer in each prefill and each decode step (48 and
+     48) and never for the other archs;
   5f. the encdec and vlm families the same way (whisper-tiny: 4 encoder
      layers over 1,500 stubbed frames and 4 decoder layers with
      cross-attention, d_model 384, a 224-token decoder prompt; qwen2-vl-2b:
@@ -226,7 +230,12 @@ and nothing of the JAX package ``repro``.  Phases:
      paths); K5 (mamba2's SSD decode mixer) at the serve cell's layer
      (batch 16, bfloat16) against its plain version over 4 steps, each of
      its planted faults failing that check, then timed beside its bytes
-     bound and the plain version (``phase_k5``);
+     bound and the plain version (``phase_k5``); K6 (the grouped expert
+     kernel of dropless MoE) at qwen2-moe-a2.7b's decode (16 rows) and
+     prefill (32,768 rows) shapes against its plain version, bit for bit
+     twice, its planted faults failing, then timed beside its bound
+     (decode: four layers' experts in turn) and the plain version
+     (``phase_k6``);
      K1, K2 and K4 carry their launches on the training path
      (``train_launches``);
   7. one ``match_batch`` (must be one kernel), the earlier matching stage,
@@ -374,6 +383,16 @@ FAMILIES = (  # arch, prompt, K4 layer, layers of the float32 check
     ("recurrentgemma-9b", 4096, 2, 3),
     ("mamba2-780m", 2048, None, 2),
 )
+# The published Qwen1.5-MoE-A2.7B, as the qwen2-moe serving cell runs it
+# (bench/configs/qwen2-moe-a2.7b.json), served after FAMILIES through the
+# same engine: the registry's qwen2-moe-a2.7b with q/k/v biases, one shared
+# expert of 5,632 under its sigmoid gate, the top-4 weights kept as they
+# are and no capacity (dropless: K6, two launches, once a MoE layer in a
+# prefill and in each decode step).
+PUBLISHED_MOE = ("qwen2-moe-a2.7b", 2048, dict(
+    qkv_bias=True, n_shared_experts=1, d_ff_shared=5632,
+    router_aux_coef=0.001, moe_dropless=True, moe_norm_topk=False,
+    moe_shared_gate=True, remat="none"))
 # The float32 check: batch 1, a 64-token prompt, 4 teacher-forced decode
 # steps, weights drawn on the card and copied to the CPU.  Logits (standard
 # deviation about 1) within FAMILY_LOGIT_ATOL: float32 sums in other
@@ -1573,18 +1592,20 @@ def phase_serve(dev):
     return captured, errs, launched, (engine, batch)
 
 
-def family_engine(dev, arch, prompt):
-    """The full-width model of ``arch`` with weights drawn on the card from
-    seed 0, its engine and a prompt batch: every input that
-    ``prefill_batch_specs`` draws (tokens, and encdec's ``enc_frames`` and
-    ``enc_len`` or vlm's ``img_embeds`` and ``positions``)."""
+def family_engine(dev, arch, prompt, overrides=None):
+    """The full-width model of ``arch`` (its config with ``overrides``)
+    with weights drawn on the card from seed 0, its engine and a prompt
+    batch: every input that ``prefill_batch_specs`` draws (tokens, and
+    encdec's ``enc_frames`` and ``enc_len`` or vlm's ``img_embeds`` and
+    ``positions``)."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.configs import shapes
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServeEngine
-    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(configs.get_config(arch), **(overrides or {}))
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in
@@ -1611,26 +1632,30 @@ def k4_calls(model):
     return calls
 
 
-def serve_family(dev, arch, prompt, capture, phase="5e"):
-    """Phase 5e or 5f for one arch at full width: serve twice, with K4
-    counted per prefill and decode and its calls checked against
-    ``k4_calls``; the K4 calls named in ``capture`` ({name: index in the
-    prefill's calls}) held to the plain version on their own q/k/v.
-    Returns (K4 launches, {name: (q, k, v, kw)}, {name: K4's max abs
-    error})."""
+def serve_family(dev, arch, prompt, capture, phase="5e", overrides=None):
+    """Phase 5e or 5f for one arch at full width (its config with
+    ``overrides``): serve twice, with K4, K5 and K6 counted per prefill and
+    decode and K4's calls checked against ``k4_calls``; the K4 calls named
+    in ``capture`` ({name: index in the prefill's calls}) held to the plain
+    version on their own q/k/v.  Returns (K4 launches, {name: (q, k, v,
+    kw)}, {name: K4's max abs error})."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k4
+    from repro_torch.kernels.moe_experts import ops as k6
     from repro_torch.kernels.ssm_decode import ops as k5
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()        # what earlier phases hold
     t0 = time.perf_counter()
-    model, params, engine, batch = family_engine(dev, arch, prompt)
+    model, params, engine, batch = family_engine(dev, arch, prompt,
+                                                 overrides)
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     n_attn = sum(kind in ("attn", "local") for kind in model.kinds)
     want_calls = k4_calls(model)
+    if overrides:
+        arch = f"{arch} (published: dropless {cfg.moe_dropless})"
     log(f"[{phase}] {arch} ({cfg.family}): {cfg.n_layers} layers "
         f"({n_attn} attn/local, kinds {sorted(set(model.kinds))}; encoder "
         f"layers {cfg.enc_layers if cfg.family == 'encdec' else 0}), "
@@ -1656,19 +1681,20 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
         if run == 1:
             k4.flash_attention = recording
         try:
-            k4.launches = k5.launches = 0
+            k4.launches = k5.launches = k6.launches = 0
             request = {k: t.clone() for k, t in batch.items()}  # as new
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state = engine.prefill(request)
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t0
-            n_pre, k5_pre = k4.launches, k5.launches
+            n_pre, k5_pre, k6_pre = k4.launches, k5.launches, k6.launches
             t0 = time.perf_counter()
             toks, state = engine.generate(state, SERVE_GEN)
             torch.cuda.synchronize()
             t_dec = time.perf_counter() - t0
             n_dec, k5_dec = k4.launches - n_pre, k5.launches - k5_pre
+            k6_dec = k6.launches - k6_pre
             launched += k4.launches
         finally:
             k4.flash_attention = plain_call
@@ -1682,6 +1708,15 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
             raise AssertionError(f"{arch}: K5 ran {k5_pre} times in prefill "
                                  f"and {k5_dec} in decode, not 0 and "
                                  f"{want_k5}")
+        # K6: two launches a MoE layer in a prefill and in each decode step
+        # of a dropless config, none otherwise
+        n_moe = (cfg.n_layers - cfg.first_k_dense
+                 if cfg.family == "moe" and cfg.moe_dropless else 0)
+        want_k6 = (2 * n_moe, 2 * n_moe * (SERVE_GEN - 1))
+        if (k6_pre, k6_dec) != want_k6:
+            raise AssertionError(f"{arch}: K6 launched {k6_pre} times in "
+                                 f"prefill and {k6_dec} in decode, not "
+                                 f"{want_k6}")
         toks = toks.cpu()
         if toks.shape != (SERVE_BATCH, SERVE_GEN) or int(toks.min()) < 0 \
                 or int(toks.max()) >= cfg.vocab:
@@ -1693,8 +1728,9 @@ def serve_family(dev, arch, prompt, capture, phase="5e"):
             f"{SERVE_BATCH * prompt / t_pre:.0f} prompt tokens/s); decode "
             f"{t_dec / steps * 1e3:.3f} ms/token over {steps} steps "
             f"({SERVE_BATCH * steps / t_dec:.1f} tokens/s at batch "
-            f"{SERVE_BATCH}); K5 launches {k5_dec} in decode; K4 launches "
-            f"{n_pre} in prefill, {n_dec} in "
+            f"{SERVE_BATCH}); K5 launches {k5_dec} in decode; K6 launches "
+            f"{k6_pre} in prefill, {k6_dec / steps:g} a decode step; K4 "
+            f"launches {n_pre} in prefill, {n_dec} in "
             f"decode (host clock, synchronized); max_memory_allocated "
             f"{peak} B, {(peak - held) / 1e9:.2f} GB above what earlier "
             f"phases hold")
@@ -1906,6 +1942,9 @@ def phase_families(dev):
             captured[arch] = (layer,) + cap[name] + (err[name],)
         launches[arch] = n
         family_card_vs_cpu(dev, arch, depth)
+    arch, prompt, overrides = PUBLISHED_MOE
+    launches[f"{arch} (published)"], _, _ = serve_family(
+        dev, arch, prompt, {}, overrides=overrides)
     return launches, captured
 
 
@@ -3477,6 +3516,109 @@ def phase_k5(dev):
                 plain_host_ms=phost, kernel_us=split, planted_faults=faults)
 
 
+K6_ARCH = "qwen2-moe-a2.7b"
+K6_SHAPES = (("decode", 4), ("prefill", 4 * 2048))   # tokens at the cell's
+K6_LAYERS = 4          # layers' experts timed in turn in decode: 4.4 GB
+K6_ROW_TOL = 0.1
+
+
+def phase_k6(dev):
+    """Phase 6, K6: held to its plain version with planted faults, then
+    timed at the MoE serving cell's decode (4 tokens, 16 rows) and
+    prefill (8,192 tokens, 32,768 rows) shapes beside its bound and the
+    plain version.  Returns its entry of the ``kernels`` line."""
+    import re
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ref import row_error
+    from repro_torch.kernels.moe_experts import ops as k6, ref as k6ref
+    from repro_torch.models import moe
+    build.build_all(["moe_experts", "moe_experts_faults"])
+    report = build.build_logs["moe_experts"]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill "
+                                         r"(?:stores|loads)", report)]
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+    log(f"[6] K6 ptxas: {len(regs)} kernels, registers {regs}, spill "
+        f"bytes {sorted(set(spills))}")
+    if not spills or any(spills):
+        raise AssertionError(f"K6: ptxas reports spills {spills}")
+    cfg = configs.get_config(K6_ARCH)
+    d, ff, e, k = cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.top_k
+    e_pad = moe.padded_experts(e)
+    g = torch.Generator(device=dev).manual_seed(0)
+    layers = [moe.moe_init(g, cfg) for _ in range(K6_LAYERS)]
+    weights = [(p["gate"], p["up"], p["down"]) for p in layers]
+    out = {}
+    for shape, tokens in K6_SHAPES:
+        x = torch.randn((tokens, d), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        _, _, top_e = moe.route(layers[0], cfg, x)
+        se, order = torch.sort(top_e.reshape(-1), stable=True)
+        off = torch.searchsorted(se, torch.arange(e_pad + 1, device=dev))
+        rows = x[order // k]
+        r, active = rows.shape[0], int((off[1:] > off[:-1]).sum())
+        want = k6ref.moe_experts_ref(rows, off, *weights[0])
+        got = k6.moe_experts(rows, off, *weights[0])
+        again = k6.moe_experts(rows, off, *weights[0])
+        err = row_error(got, want)
+        log(f"[6] K6 {shape} ({r} rows, {active} experts with rows, bf16) "
+            f"against its plain version: row error {err:.5f} (limit "
+            f"{K6_ROW_TOL}), bit equal twice {torch.equal(got, again)}")
+        if err > K6_ROW_TOL or not torch.equal(got, again):
+            raise AssertionError(f"K6 {shape} against its plain version")
+        faults = {}
+        for fault in (1, 2, 3):
+            faults[fault] = row_error(k6.moe_experts_planted(
+                rows, off, *weights[0], fault=fault), want)
+            log(f"[6] K6 {shape} planted fault {fault}: row error "
+                f"{faults[fault]:.4f}: "
+                f"{'caught' if faults[fault] > K6_ROW_TOL else 'MISSED'}")
+            if faults[fault] <= K6_ROW_TOL:
+                raise AssertionError(f"K6 planted fault {fault} passed")
+        turn = itertools.count()
+
+        def in_turn(fn):
+            # decode meets each layer's experts cold: layers in turn
+            def call():
+                w = weights[next(turn) % K6_LAYERS] if shape == "decode" \
+                    else weights[0]
+                return fn(rows, off, *w)
+            return call
+
+        ms, host = time_ms(in_turn(k6.moe_experts),
+                           per_run=48 if shape == "decode" else 8)
+        # the plain loop reads the offsets on the host: timed with a
+        # synchronise on each side of 4 calls
+        plain_call = in_turn(k6ref.moe_experts_ref)
+        plain_call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            plain_call()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3 / 4
+        nbytes = active * 3 * d * ff * 2 + 2 * r * d * 2
+        nflops = 6 * r * d * ff
+        bound = max(nbytes / HBM_BYTES_PER_S, nflops / BF16_OPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S > nflops / BF16_OPS_PER_S \
+            else "operations"
+        log(f"[6] K6 {shape}: {ms * 1e3:.3f} us (issued in "
+            f"{host * 1e3:.2f} us, two launches), {nflops / ms / 1e9:.1f} "
+            f"TFLOP/s; bound {bound * 1e3:.3f} us by {by} ({nbytes} B, "
+            f"{nflops} FLOP; {bound / ms * 100:.1f} %); plain "
+            f"{plain * 1e3:.3f} us (host clock, synchronised)")
+        out[shape] = dict(rows=r, active=active, ms=ms, host_ms=host,
+                          bound_ms=bound, bound_by=by, plain_ms=plain,
+                          row_err=err, planted_faults=faults)
+    del layers, weights
+    return dict(name="moe_experts", route="cuda",
+                source="src/repro_torch/kernels/moe_experts/moe_experts.cu",
+                replaces=None, library_ms=None, **{
+                    f"{shape}_{key}": v for shape, o in out.items()
+                    for key, v in o.items()})
+
+
 def phase_dryrun(dev):
     """Phase 5j: the dry run's cells on the card, then one train step's
     counts, real against fake, and its roofline floor against its time
@@ -3648,6 +3790,8 @@ def main() -> int:
     launches["families"], fam_captured = phase_families(dev)
     want = {arch: 2 * len(k4_calls(build_model(configs.get_config(arch))))
             for arch, _, _, _ in FAMILIES}
+    want[f"{PUBLISHED_MOE[0]} (published)"] = 2 * configs.get_config(
+        PUBLISHED_MOE[0]).n_layers
     log(f"[5e] path launches: K4 {launches['families']} (= 2 prefills x "
         f"the attn/local layers, {want})")
     if launches["families"] != want:
@@ -3687,6 +3831,7 @@ def main() -> int:
                             empty, captured_bwd, k4b_err, fam_captured,
                             modal_captured, family_captured)
     kernels.append(phase_k5(dev))
+    kernels.append(phase_k6(dev))
     del captured_bwd, fam_captured, modal_captured, family_captured
     # last, because the profiler's tracing may slow later launches: the
     # matching stage in both forms, one ingest call, one Fig 10 step (the

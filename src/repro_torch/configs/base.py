@@ -41,6 +41,16 @@ class ModelConfig:
     first_k_dense: int = 0        # kimi-k2: first layer dense
     router_aux_coef: float = 0.01
     moe_capacity_factor: float = 1.25
+    # dropless routing (every assignment kept, prefill and decode alike:
+    # a sort by expert and the grouped expert kernel K6), in place of the
+    # capacity-bounded buffer
+    moe_dropless: bool = False
+    # renormalise the top-k router weights to sum 1 (qwen2-moe publishes
+    # norm_topk_prob false: the softmax over all experts, kept as it is)
+    moe_norm_topk: bool = True
+    # scale the shared experts' output by sigmoid(x @ shared_gate), a
+    # (d_model, 1) leaf (qwen2-moe's shared_expert_gate)
+    moe_shared_gate: bool = False
 
     # --- ssm (mamba2) ---
     ssm_state: int = 0
@@ -158,6 +168,8 @@ class ModelConfig:
                     total += 3 * d * self.d_ff_expert * self.top_k
                 total += d * e                        # router
                 total += 3 * d * self.d_ff_shared * self.n_shared_experts
+                if self.moe_shared_gate:
+                    total += d
                 if self.first_k_dense and i < self.first_k_dense:
                     pass
             else:

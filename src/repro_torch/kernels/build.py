@@ -11,7 +11,8 @@ process that finds the library built still has its ptxas report.
 ``chip_smoke.py`` calls up front.  A library in ``DEFINES`` is a variant
 of another's source built with extra macros: ``flash_attention_bwd_faults``
 is K4b with the planted faults that the checks must catch, kept out of
-the shipped kernel, and ``ssm_decode_faults`` K5 with its.
+the shipped kernel, ``ssm_decode_faults`` K5 with its and
+``moe_experts_faults`` K6 with its.
 
 Nothing here runs when the package is imported.
 """
@@ -39,9 +40,12 @@ SOURCES = {
                                    / "flash_attention_bwd.cu"),
     "ssm_decode": KERNELS_DIR / "ssm_decode" / "ssm_decode.cu",
     "ssm_decode_faults": KERNELS_DIR / "ssm_decode" / "ssm_decode.cu",
+    "moe_experts": KERNELS_DIR / "moe_experts" / "moe_experts.cu",
+    "moe_experts_faults": KERNELS_DIR / "moe_experts" / "moe_experts.cu",
 }
 DEFINES = {"flash_attention_bwd_faults": ["-DREPRO_K4B_PLANTED_FAULTS"],
-           "ssm_decode_faults": ["-DREPRO_K5_PLANTED_FAULTS"]}
+           "ssm_decode_faults": ["-DREPRO_K5_PLANTED_FAULTS"],
+           "moe_experts_faults": ["-DREPRO_K6_PLANTED_FAULTS"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

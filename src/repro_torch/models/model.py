@@ -42,8 +42,11 @@ batch's ``enc_len``: the prefill's cross-attention masks keys past the
 batch's ``enc_len``, but decode attends to every frame.
 
 MoE layers run at ``cfg.moe_capacity_factor`` in the forward and the
-prefill and at ``n_experts`` (drop-free) in decode; ``aux``, their
-load-balancing loss summed over layers, is added to ``loss_fn``'s loss.
+prefill and at ``n_experts`` (drop-free) in decode, or, where
+``cfg.moe_dropless``, with no capacity anywhere (``models.moe``: a sort
+by expert and the grouped kernel K6); ``aux``, their load-balancing loss
+summed over layers, is added to ``loss_fn``'s loss (serving does not
+compute it).
 vlm image positions carry no next-token loss.
 
 Remat (``cfg.remat``), when autograd records the forward: each block runs
@@ -171,7 +174,7 @@ def _block_apply_train(p, cfg: ModelConfig, kind: str, h, positions,
         return h, None
     x2 = L.rmsnorm(p["norm2"], h, cfg.norm_eps)
     if "moe" in p:
-        y, aux = M.moe_apply(p["moe"], cfg, x2)
+        y, aux = M.moe_apply(p["moe"], cfg, x2, with_aux=cache is None)
         return h + y, aux
     return h + D.settle(L.mlp_apply(p["mlp"], x2, cfg.mlp_kind)), None
 
@@ -201,7 +204,8 @@ def _block_apply_decode(p, cfg: ModelConfig, kind: str, h, cache, pos,
     if "moe" in p:
         # drop-free capacity: a one-token step must keep its experts
         y, _ = M.moe_apply(p["moe"], cfg, x2,
-                           capacity_factor=float(cfg.n_experts))
+                           capacity_factor=float(cfg.n_experts),
+                           with_aux=False)
         return h + y
     return h + D.settle(L.mlp_apply(p["mlp"], x2, cfg.mlp_kind))
 

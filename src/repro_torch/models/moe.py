@@ -28,10 +28,29 @@ Where the port differs in form:
   no fixed order.  Here the assignments are un-sorted to (T, top_k, d) and
   added in the router's top-k order (largest weight first), each addition
   rounded to ``x.dtype``, so two runs give the same bits.
+
+Three options of ``ModelConfig`` that the JAX package does not have, off
+by default (qwen2-moe as published, Qwen1.5-MoE-A2.7B, sets all three):
+``moe_norm_topk`` False keeps the top-k weights of the softmax over all
+experts as they are; ``moe_shared_gate`` scales the shared experts'
+output by ``sigmoid(x @ shared_gate)`` ((d, 1), a leaf of its own); and
+``moe_dropless`` keeps every assignment, in the forward, the prefill and
+decode alike: the assignments sorted stably by expert on the device, each
+expert's offsets found by a search of the sorted ids, the token rows
+gathered in that order, the routed experts run over each expert's
+contiguous rows by the grouped kernel K6
+(``kernels/moe_experts``; the plain per-expert loop on the CPU), and the
+results combined as above.  No step of it reads a device value on the
+host.  The mesh path takes only the capacity-bounded dispatch.
+
+Spans (``repro_torch.trace``): ``moe.router`` (the router and its top-k,
+the aux loss), ``moe.dispatch`` (sort, offsets or slots, gather),
+``moe.experts`` (K6, its plain loop, or the batched products),
+``moe.combine`` and ``moe.shared``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +58,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_experts import ops as K6
 from repro_torch.models import layers as L
 from repro_torch.parallel import dtensor as dt
 
@@ -69,17 +90,21 @@ def moe_init(g: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
             "gate": L._normal((d, ffs), s_in, dt, g),
             "down": L._normal((ffs, d), float(1 / np.sqrt(ffs)), dt, g),
         }.items()})
+        if cfg.moe_shared_gate:
+            p["shared_gate"] = L.param(L._normal((d, 1), s_in, dt, g))
     return nn.ParameterDict(p)
 
 
 def route(p, cfg: ModelConfig, xt: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router over tokens xt (T, d), in float32.  Returns (probs (T, E),
-    top-k weights renormalised to sum 1 (T, k), top-k experts (T, k))."""
+    top-k weights (T, k), renormalised to sum 1 where
+    ``cfg.moe_norm_topk``, top-k experts (T, k))."""
     logits = xt.to(torch.float32) @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, cfg.top_k, dim=-1)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if cfg.moe_norm_topk:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_w, top_e
 
 
@@ -114,23 +139,35 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def moe_apply(p, cfg: ModelConfig, x: torch.Tensor,
-              capacity_factor: float = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d).  Returns (y (B, S, d), aux loss, a 0-d float32 tensor).
+              capacity_factor: float = None, with_aux: bool = True
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x: (B, S, d).  Returns (y (B, S, d), aux loss, a 0-d float32 tensor,
+    or None without ``with_aux``: serving has no use for it).
 
     capacity_factor None -> cfg.moe_capacity_factor (training and
-    prefill); decode passes n_experts, which drops nothing."""
+    prefill); decode passes n_experts, which drops nothing.  A dropless
+    config (``cfg.moe_dropless``) takes no capacity."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     if dt.is_dt(x):
+        if cfg.moe_dropless:
+            raise NotImplementedError("moe_apply: the dropless dispatch "
+                                      "takes no DTensor (mesh) input")
         return _moe_apply_mesh(p, cfg, x, capacity_factor)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    y, aux = _routed(cfg, xt, p["router"], capacity_factor,
-                     lambda buf: _experts(buf, p["gate"], p["up"],
-                                          p["down"]))
+    if cfg.moe_dropless:
+        y, aux = _dropless(cfg, p, xt, with_aux)
+    else:
+        y, aux = _routed(cfg, xt, p["router"], capacity_factor,
+                         lambda buf: _experts(buf, p["gate"], p["up"],
+                                              p["down"]), with_aux)
     if "shared" in p:
-        y = y + _shared(p["shared"], xt)
+        with trace.span("moe.shared"):
+            ys = _shared(p["shared"], xt)
+            if cfg.moe_shared_gate:
+                ys = torch.sigmoid(xt @ p["shared_gate"]) * ys
+            y = y + ys
     return y.reshape(b, s, d), aux
 
 
@@ -147,40 +184,81 @@ def _shared(sp, xt):
     return (F.silu(xt @ sp["gate"]) * (xt @ sp["up"])) @ sp["down"]
 
 
-def _routed(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
-            capacity_factor: float, experts):
-    """The routed experts over tokens xt (T, d): (y (T, d), aux).
-    ``experts`` maps the dispatch buffer (E_pad, C, d) to its outputs."""
-    t, d = xt.shape
+def _aux_loss(cfg: ModelConfig, probs, top_e):
+    """Load-balancing auxiliary loss (Switch-style): the share of
+    assignments each expert got, against its mean router probability."""
     k, e = cfg.top_k, cfg.n_experts
-    probs, top_w, top_e = route({"router": router}, cfg, xt)
-
-    # load-balancing auxiliary loss (Switch-style): the share of
-    # assignments each expert got, against its mean router probability
     density = _counts(top_e.reshape(-1), e).to(
-        torch.float32) / t
-    aux = cfg.router_aux_coef * e * torch.sum(density / k * probs.mean(0))
+        torch.float32) / top_e.shape[0]
+    return cfg.router_aux_coef * e * torch.sum(density / k * probs.mean(0))
 
-    e_pad = padded_experts(e)
-    capacity = capacity_of(cfg, t, capacity_factor)
-    order, keep, slot = dispatch(top_e, e_pad, capacity)
-    st = torch.div(order, k, rounding_mode="floor")      # sorted tokens
-    buf = xt.new_zeros((e_pad * capacity + 1, d))
-    buf[slot] = xt[st]
-    out = experts(buf[:-1].view(e_pad, capacity, d)).reshape(
-        e_pad * capacity, d)
 
-    sw = top_w.reshape(-1)[order].to(xt.dtype)
-    y_sorted = torch.where(keep[:, None],
-                           out[torch.clamp(slot, max=e_pad * capacity - 1)],
-                           0) * sw[:, None]
+def _combine(y_sorted, order, t: int, k: int):
+    """Assignment outputs in sorted order back to (token, choice), added in
+    the router's top-k order, each addition rounded to their dtype."""
     y_tk = torch.empty_like(y_sorted)
     y_tk[order] = y_sorted                       # back to (token, choice)
-    y_tk = y_tk.view(t, k, d)
+    y_tk = y_tk.view(t, k, -1)
     y = y_tk[:, 0]
     for j in range(1, k):
         y = y + y_tk[:, j]
-    return y, aux
+    return y
+
+
+def _routed(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
+            capacity_factor: float, experts, with_aux: bool = True):
+    """The routed experts over tokens xt (T, d): (y (T, d), aux or None).
+    ``experts`` maps the dispatch buffer (E_pad, C, d) to its outputs."""
+    t, d = xt.shape
+    k, e = cfg.top_k, cfg.n_experts
+    with trace.span("moe.router"):
+        probs, top_w, top_e = route({"router": router}, cfg, xt)
+        aux = _aux_loss(cfg, probs, top_e) if with_aux else None
+
+    with trace.span("moe.dispatch"):
+        e_pad = padded_experts(e)
+        capacity = capacity_of(cfg, t, capacity_factor)
+        order, keep, slot = dispatch(top_e, e_pad, capacity)
+        st = torch.div(order, k, rounding_mode="floor")      # sorted tokens
+        buf = xt.new_zeros((e_pad * capacity + 1, d))
+        buf[slot] = xt[st]
+    with trace.span("moe.experts"):
+        out = experts(buf[:-1].view(e_pad, capacity, d)).reshape(
+            e_pad * capacity, d)
+
+    with trace.span("moe.combine"):
+        sw = top_w.reshape(-1)[order].to(xt.dtype)
+        y_sorted = torch.where(
+            keep[:, None], out[torch.clamp(slot, max=e_pad * capacity - 1)],
+            0) * sw[:, None]
+        return _combine(y_sorted, order, t, k), aux
+
+
+def _dropless(cfg: ModelConfig, p, xt: torch.Tensor, with_aux: bool):
+    """The routed experts over tokens xt (T, d) with no capacity: (y (T,
+    d), aux or None).  Every assignment is kept; none of it reads a device
+    value on the host (K6's grid is an upper bound of its tiles)."""
+    t, k = xt.shape[0], cfg.top_k
+    with trace.span("moe.router"):
+        probs, top_w, top_e = route(p, cfg, xt)
+        aux = _aux_loss(cfg, probs, top_e) if with_aux else None
+    with trace.span("moe.dispatch"):
+        e_pad = padded_experts(cfg.n_experts)
+        se, order = torch.sort(top_e.reshape(-1), stable=True)
+        # offsets[e]: the first sorted assignment of expert e or later
+        offsets = torch.searchsorted(se, _expert_ids(e_pad + 1, se.device))
+        rows = xt[torch.div(order, k, rounding_mode="floor")]
+    with trace.span("moe.experts"):
+        out = K6.moe_experts(rows, offsets, p["gate"], p["up"], p["down"])
+    with trace.span("moe.combine"):
+        sw = top_w.reshape(-1)[order].to(xt.dtype)
+        return _combine(out * sw[:, None], order, t, k), aux
+
+
+@L._constant()
+def _expert_ids(n: int, device: torch.device) -> torch.Tensor:
+    """0 .. n-1 (int64) on ``device``, made there once."""
+    return torch.arange(n, device=device)
 
 
 def _moe_apply_mesh(p, cfg: ModelConfig, x, capacity_factor: float):
